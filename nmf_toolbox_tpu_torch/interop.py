@@ -1,0 +1,64 @@
+"""Carry factors between the JAX package and this port.
+
+Both directions go through NumPy: a JAX ``Result`` or checkpoint holds
+NumPy arrays, and this module turns them into tensors that ``nmf`` takes
+as ``W_init``/``H_init``.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core import torch_dtype
+
+
+def factors_from_numpy(obj, *, device="cpu", dtype=None):
+    """(W, H) tensors from a JAX ``Result`` or a mapping with "W" and "H".
+
+    Each factor is a NumPy array or a per-source list of them, as the JAX
+    package returns; lists stay lists.  Tensors land on ``device`` in
+    ``dtype`` (default: the arrays' own dtype), ready to pass as
+    ``W_init=``/``H_init=``.
+    """
+    get = obj.get if isinstance(obj, dict) else (lambda f: getattr(obj, f, None))
+    W, H = get("W"), get("H")
+    if W is None or H is None:
+        raise ValueError("need both W and H factors")
+    dt = None if dtype is None else torch_dtype(dtype)
+
+    def convert(x):
+        if isinstance(x, (list, tuple)):
+            return [convert(a) for a in x]
+        t = torch.tensor(np.asarray(x), device=device)  # a copy: JAX arrays are read-only
+        return t if dt is None else t.to(dt)
+    return convert(W), convert(H)
+
+
+def load_factors_npz(path) -> dict:
+    """Read a checkpoint written by ``nmf_toolbox_tpu.utils.save_factors``.
+
+    The format: one array per factor, or ``name__len`` plus ``name__0``,
+    ``name__1``, ... for a per-source list; ``__fields__`` names the
+    Result's fields in order and ``__n_iters__`` its iteration count;
+    ``extra__*`` entries are the caller's own.  Returns a dict from each
+    field (every non-metadata name when ``__fields__`` is absent) to its
+    NumPy array or list of arrays, plus ``n_iters`` when stored.  Read
+    with NumPy alone, without unpickling.
+    """
+    with np.load(path, allow_pickle=False) as z:
+        files = set(z.files)
+        lists = {f[: -len("__len")] for f in files if f.endswith("__len")}
+        if "__fields__" in files:
+            names = [str(s) for s in z["__fields__"]]
+        else:
+            names = sorted(lists | {f for f in files if "__" not in f})
+        out = {}
+        for name in names:
+            if name in lists:
+                out[name] = [z[f"{name}__{s}"]
+                             for s in range(int(z[f"{name}__len"]))]
+            elif name in files:
+                out[name] = z[name]
+        if "__n_iters__" in files:
+            out["n_iters"] = int(z["__n_iters__"])
+    return out

@@ -1,0 +1,149 @@
+"""Convergence-driven iteration loop (PyTorch counterpart of
+``nmf_toolbox_tpu/ops/loop.py``).
+
+Every reference solver runs ``for iter = 1:maxiter`` with the early-exit
+rule (nmf.m:221-224):
+
+  stop at iter > 1 when cost(iter) < cost(iter-1)
+                    and cost(iter-1) - cost(iter) < tolerance
+
+(lnmf.m:89 uses <= on both comparisons; nmfsc/cnmfsc additionally return
+when a line-search stepsize underflows 1e-200.)
+
+The JAX package runs the loop as one on-device ``lax.while_loop``.  Here
+it is a Python loop over eager steps: the cost buffer lives on the
+device, the stop rule is evaluated there in the cost dtype, and its one
+boolean is read on the host only on check iterations — every iteration
+at ``cost_every=1``, the cadence's check iterations otherwise — so a run
+pays one host sync per check.  ``n_iters``, ``stopped``, ``terminated``
+and the trim rules are those of the JAX loop.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+
+class LoopOut(NamedTuple):
+    state: object
+    cost_buf: torch.Tensor  # (maxiter + offset,)
+    n_iters: int            # iterations actually executed
+    stopped: bool           # tolerance rule fired
+    terminated: bool        # step_fn requested termination (line-search underflow)
+
+
+def is_check(i: int, ce: int, maxiter: int) -> bool:
+    """Iterations that compute a fresh objective under ``cost_every=ce``:
+    the first, every ce-th and the last."""
+    return (i + 1) % ce == 0 or i == 0 or i + 1 >= maxiter
+
+
+def run(step_fn: Callable, init_state, maxiter: int, tolerance,
+        *, offset: int = 0, initial_cost=None, inclusive: bool = False,
+        cost_dtype=None, cost_every: int = 1) -> LoopOut:
+    """Run the MU loop.
+
+    ``step_fn(state, i) -> (state, cost, terminate)`` performs one full
+    iteration (both factor updates + cost).  ``cost`` is a 0-d tensor on
+    the state's device; ``terminate`` a Python bool or 0-d bool tensor
+    (read on the host every iteration when it is a tensor).
+
+    offset=1 reserves index 0 of the cost buffer for ``initial_cost``
+    (nmfsc-family semantics).  ``inclusive`` switches both comparisons of
+    the stop rule to <= (lnmf.m:89).  ``cost_every`` must match the
+    cadence of the step's :func:`cost_cadence` tail: when > 1 the stop
+    rule is checked only on iterations that computed a fresh objective.
+    """
+    state0 = init_state[0] if isinstance(init_state, (tuple, list)) else init_state
+    device = state0.device
+    if cost_dtype is None:
+        cost_dtype = (torch.as_tensor(initial_cost).dtype
+                      if initial_cost is not None else torch.float32)
+    buf = torch.zeros((maxiter + offset,), dtype=cost_dtype, device=device)
+    if initial_cost is not None:
+        buf[0] = torch.as_tensor(initial_cost, dtype=cost_dtype)
+    tol = torch.tensor(tolerance, dtype=cost_dtype, device=device)
+    ce = int(cost_every)
+
+    state, i, stopped, terminated = init_state, 0, False, False
+    while not stopped and not terminated and i < maxiter:
+        state, c, term = step_fn(state, i)
+        terminated = bool(term)
+        buf[i + offset] = c
+        if i >= 1 and not terminated and is_check(i, ce, maxiter):
+            c = buf[i + offset]
+            prev = buf[max(i + offset - 1, 0)]
+            if inclusive:
+                trigger = (c <= prev) & (prev - c <= tol)
+            else:
+                trigger = (c < prev) & (prev - c < tol)
+            stopped = bool(trigger)  # the one host sync of a check iteration
+        i += 1
+    return LoopOut(state, buf, i, stopped, terminated)
+
+
+def cadence_state(state: tuple, ce: int, dtype) -> tuple:
+    """Initial carry for a ``run`` step using :func:`cost_cadence`:
+    with cost_every > 1 the carry grows a trailing slot holding the last
+    computed objective (+inf until the first evaluation, so no stop-rule
+    comparison can fire early)."""
+    if int(ce) == 1:
+        return state
+    return tuple(state) + (torch.tensor(float("inf"), dtype=dtype,
+                                        device=state[0].device),)
+
+
+def cost_cadence(ce: int, maxiter: int):
+    """Build the ``finish(state, carry, i, cost_fn)`` tail for a ``run``
+    step function implementing the ``cost_every`` knob.
+
+    The objective feeds ONLY the stopping rule (nmf.m:221-224), never
+    the factor updates, so with cost_every = N > 1 it is evaluated on
+    iterations {1, N, 2N, ..., maxiter} and carried forward in between:
+    the skipped iterations drop the objective's reconstruction and
+    divergence-field pass entirely.  Carried entries repeat the last
+    computed value, which can never fire the strict
+    ``cost(i) < cost(i-1)`` trigger, so the stop rule degrades exactly
+    to "decrease over the last N iterations < tolerance".
+
+    ``state`` is the updated factor tuple, ``carry`` the incoming loop
+    carry (whose trailing slot is the last computed objective when
+    ce > 1), ``cost_fn()`` the objective of the updated state.  Returns
+    the ``(new_carry, cost, terminate)`` triple ``run`` expects.
+    """
+    ce = int(ce)
+
+    def finish(state, carry, i, cost_fn):
+        if ce == 1:
+            return tuple(state), cost_fn(), False
+        cp = carry[-1]
+        c = cost_fn().to(cp.dtype) if is_check(i, ce, maxiter) else cp
+        return tuple(state) + (c,), c, False
+
+    return finish
+
+
+def trim_cost(out: LoopOut, maxiter: int, *, offset: int = 0,
+              trim: bool = True) -> np.ndarray:
+    """Host-side cost-vector trimming matching each solver's semantics.
+
+    Returns a NumPy array.
+    - standard solvers (offset=0): trimmed to n_iters on early stop
+      (nmf.m:221-224); full length if the loop ran out.
+    - lnmf: pass trim=False — the reference breaks without trimming, so the
+      vector keeps length maxiter with zeros after the stop (lnmf.m:89-91).
+    - nmfsc family (offset=1): tolerance stop -> first n_iters+1 entries
+      (initial cost + each iteration, nmfsc.m:241-243); line-search
+      underflow at iteration i -> first i entries only (nmfsc.m:170-174).
+    """
+    buf = out.cost_buf.detach().cpu().numpy()
+    n = int(out.n_iters)
+    if not trim:
+        return buf
+    if out.terminated:
+        return buf[: n - 1 + offset]
+    if out.stopped:
+        return buf[: n + offset]
+    return buf
