@@ -4,11 +4,12 @@ It mirrors the JAX package's module names and call surface, so each
 module here has a counterpart there, and is held against it by the
 tests.  It imports ``torch`` and never ``jax``.  The KL/IS hot loop of
 ``nmf(..., method="fused")`` runs hand-written CUDA kernels
-(``csrc/fused.cu``), built with ``nvcc`` at first use; on CPU tensors
-their plain PyTorch versions run instead.
+(``csrc/fused.cu``; the streamed W-phase variant is ``csrc/fused_dma.cu``),
+built with ``nvcc`` at first use; on CPU tensors their plain PyTorch
+versions run instead.
 """
 from .core import EPS, Result
-from .models import nmf
+from .models import nmf, nmf_hals
 
-__all__ = ["EPS", "Result", "nmf"]
+__all__ = ["EPS", "Result", "nmf", "nmf_hals"]
 __version__ = "1.1.0"  # the distribution's version (pyproject.toml)

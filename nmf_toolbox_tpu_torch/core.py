@@ -61,9 +61,13 @@ def parse_cost_every(cfg) -> int:
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch dtype, a NumPy dtype or a dtype name."""
+    """A torch dtype from a torch dtype, a NumPy dtype or a dtype name
+    (``"bfloat16"`` included, which NumPy itself does not name)."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if isinstance(getattr(torch, name, None), torch.dtype):
+        return getattr(torch, name)
     return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
 
 
@@ -164,6 +168,24 @@ def fixed_col_mask(fixed: Sequence[bool], ks: Sequence[int]) -> np.ndarray:
     return np.concatenate(
         [np.full((int(k),), bool(f)) for f, k in zip(fixed, ks)]
     )
+
+
+def prepare_weights(weights, dtype, device, shape):
+    """Validate and cast a per-entry weight matrix like V: the one path
+    of every solver that takes ``weights=`` (the JAX package's
+    parallel/padding.prepare_weights without a mesh)."""
+    weights = as_tensor(weights, dtype, device)
+    if tuple(weights.shape) != tuple(shape):
+        raise ValueError(f"weights has shape {tuple(weights.shape)}, "
+                         f"expected {tuple(shape)}")
+    # Negative weights would flip update signs through the KL/AB
+    # ones-field denominators, and NaN weights poison every update.
+    if bool(torch.any(weights < 0) | torch.any(torch.isnan(weights))):
+        raise ValueError(
+            "weights must be nonnegative and NaN-free; to down-weight or "
+            "drop entries use 0, and to mask NaN DATA pass the NaN in V "
+            "with weight 0")
+    return weights
 
 
 # ---------------------------------------------------------------------------

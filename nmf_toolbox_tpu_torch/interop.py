@@ -1,8 +1,9 @@
 """Carry factors between the JAX package and this port.
 
 Both directions go through NumPy: a JAX ``Result`` or checkpoint holds
-NumPy arrays, and this module turns them into tensors that ``nmf`` takes
-as ``W_init``/``H_init``.  Nothing here imports JAX.
+NumPy arrays, and this module turns them into tensors that ``nmf`` and
+``nmf_hals`` take as ``W_init``/``H_init`` and ``resume_state``.  Nothing
+here imports JAX.
 """
 from __future__ import annotations
 
@@ -32,6 +33,25 @@ def factors_from_numpy(obj, *, device="cpu", dtype=None):
         t = torch.tensor(np.asarray(x), device=device)  # a copy: JAX arrays are read-only
         return t if dt is None else t.to(dt)
     return convert(W), convert(H)
+
+
+def resume_state_from_numpy(rs, *, device="cpu", dtype=None) -> dict:
+    """The port's ``resume_state`` from a JAX ``Result.resume_state``.
+
+    JAX's extrapolated ``nmf_hals`` returns the momentum state as NumPy
+    arrays ``Wy``, ``Hy`` and floats ``beta``, ``beta_bar``,
+    ``prev_err``.  The arrays become tensors on ``device`` in ``dtype``
+    (default: their own dtype) and the scalars stay floats, ready to pass
+    as ``nmf_hals(..., extrapolate=True, resume_state=...)`` together
+    with the Result's W and H as ``W_init``/``H_init``.
+    """
+    missing = {"Wy", "Hy", "beta", "beta_bar", "prev_err"} - set(rs)
+    if missing:
+        raise ValueError(f"resume_state lacks {sorted(missing)}")
+    Wy, Hy = factors_from_numpy({"W": rs["Wy"], "H": rs["Hy"]},
+                                device=device, dtype=dtype)
+    return {"Wy": Wy, "Hy": Hy,
+            **{key: float(rs[key]) for key in ("beta", "beta_bar", "prev_err")}}
 
 
 def load_factors_npz(path) -> dict:

@@ -7,7 +7,9 @@ nmf.m), with the same config surface, guards and results:
   of one concatenated (m, k_total) basis.
 * ``method='gram'`` (Euclidean) never materializes the m-by-n
   reconstruction: two full-size matmuls per iteration (V @ H' and W' @ V)
-  and k-by-k Grams for the rest, cost included.
+  and k-by-k Grams for the rest, cost included.  With
+  ``data_dtype='bfloat16'`` V is stored in bf16 and both products take
+  bf16 inputs and accumulate in f32.
 * ``method='naive'`` (any divergence, and the only one taking
   ``weights``) builds the reconstruction; the KL ones-field stays
   implicit (nmf.m:152-153).
@@ -26,13 +28,14 @@ import torch
 
 from ..core import (Result, as_list, as_tensor, common_scalars, default_h_init,
                     default_w_init, fixed_col_mask, merge_config,
-                    parse_cost_every, per_column, promote_inits,
-                    promote_per_source, resolve_device, resolve_dtype,
-                    source_blocks, unwrap_sources)
+                    parse_cost_every, per_column, prepare_weights,
+                    promote_inits, promote_per_source, resolve_device,
+                    resolve_dtype, source_blocks, torch_dtype, unwrap_sources)
 from ..ops import divergence as dv
 from ..ops import loop as looplib
 from ..ops.gram import euclidean_cost_gram, sq_norm
 from ..ops.normalize import unit_l2_columns
+from ..utils.init import nndsvd, seedable
 
 
 class _Spec(NamedTuple):
@@ -81,7 +84,20 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None):
     m, n = V.shape
     kl = div == "kl"
     if spec.method == "gram":
-        v_sq = sq_norm(V)
+        fdt = wsp.dtype  # the factors' dtype
+        v_sq = sq_norm(V.to(fdt))
+
+        def vdot(A, B):
+            """A @ B with V (one of them) in its storage dtype: a bf16 or
+            f16 V takes low-precision inputs and accumulates in f32."""
+            A, B = A.to(V.dtype), B.to(V.dtype)
+            if V.dtype.itemsize >= 4:
+                return A @ B
+            if V.is_cuda:
+                return torch.mm(A, B, out_dtype=torch.float32)
+            # The CPU build has no out_dtype overload: upcast the
+            # low-precision operands (exact) and multiply in f32.
+            return A.float() @ B.float()
     elif spec.method == "fused":
         from ..ops.kernels import fused as fk
         V = V.contiguous()  # the kernels take row-major operands
@@ -104,7 +120,7 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None):
         W, H = carry[0], carry[1]
         if w_any:
             HHt = H @ H.T
-            VHt = V @ H.T                          # [mnk]
+            VHt = vdot(V, H.T)                     # [mnk]
             # Accelerated MU (Gillis & Glineur 2012, arXiv:1107.5194):
             # VHt and HHt depend only on V and the fixed H, so the W step
             # can repeat `inner` times reusing them.  inner=1 is the
@@ -114,7 +130,7 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None):
                 dneg = torch.sum(W * WG, dim=0)    # diag(Hs V_hat' Ws)
                 dpos = torch.sum(W * VHt, dim=0)   # diag(Hs V' Ws)
                 W = update_w(W, VHt + W * dneg[None, :], WG + W * dpos[None, :])
-        WtV = W.T @ V                              # [mnk]
+        WtV = vdot(W.T, V)                         # [mnk]
         WtW = W.T @ W
         if h_any:
             for _ in range(spec.inner):
@@ -191,23 +207,6 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None):
             "fused": fused_step}[spec.method]
 
 
-def _prepare_weights(weights, dtype, device, shape):
-    """Validate and cast a per-entry weight matrix like V (the JAX
-    package's parallel/padding.prepare_weights without a mesh)."""
-    weights = as_tensor(weights, dtype, device)
-    if tuple(weights.shape) != tuple(shape):
-        raise ValueError(f"weights has shape {tuple(weights.shape)}, "
-                         f"expected {tuple(shape)}")
-    # Negative weights would flip update signs through the KL/AB
-    # ones-field denominators, and NaN weights poison every update.
-    if bool(torch.any(weights < 0) | torch.any(torch.isnan(weights))):
-        raise ValueError(
-            "weights must be nonnegative and NaN-free; to down-weight or "
-            "drop entries use 0, and to mask NaN DATA pass the NaN in V "
-            "with weight 0")
-    return weights
-
-
 def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
     """Decompose a non-negative matrix V ~ W @ H.
 
@@ -223,17 +222,19 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
     at any value; the stop rule becomes "decrease over the last N
     iterations < tolerance").
 
+    ``init`` ('random' | 'nndsvd' | 'nndsvda' | 'nndsvdar': SVD-seeded
+    factors, single source, not with ``W_init``/``H_init``) and
+    ``data_dtype`` (e.g. 'bfloat16': V's storage dtype on the Gram path).
+
     ``device``: where a NumPy ``V`` goes (default ``"cpu"``); a tensor
-    ``V`` runs on its own device.  ``init='nndsvd*'``, ``data_dtype``,
-    ``callback`` and ``mesh`` are not ported yet and raise
-    ``NotImplementedError``.
+    ``V`` runs on its own device.  ``callback`` and ``mesh`` are not
+    ported yet and raise ``NotImplementedError``.
 
     Returns a :class:`Result` unpacking as (W, H, cost): ``W`` and ``H``
     tensors on the run's device, ``cost`` a NumPy array.
     """
     cfg = merge_config(config, kwargs)
-    for key, item in (("data_dtype", "queue 1 item 2 (data_dtype='bfloat16')"),
-                      ("callback", "queue 1 item 2"),
+    for key, item in (("callback", "queue 1 item 2"),
                       ("mesh", "queue 1 item 13 (multi-GPU)")):
         if cfg.get(key) is not None:
             raise NotImplementedError(
@@ -302,9 +303,20 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
         if init not in ("nndsvd", "nndsvda", "nndsvdar"):
             raise ValueError(f"unknown init {init!r}; expected 'random', "
                              "'nndsvd', 'nndsvda', or 'nndsvdar'")
-        raise NotImplementedError(
-            "init='nndsvd*' is not ported to nmf_toolbox_tpu_torch yet "
-            "(ROADMAP queue 1 item 2)")
+        if w_list is not None or h_list is not None:
+            raise ValueError("init='nndsvd*' cannot be combined with "
+                             "W_init/H_init")
+        if S != 1:
+            raise ValueError("init='nndsvd*' supports a single source")
+        cdt = torch.promote_types(dtype, torch.float32)
+        Vs = seedable(V) if weights is not None else V
+        Wn, Hn = nndsvd(Vs.to(cdt), ks[0], generator=gen, variant=init)
+        # The solver normalizes W columns to unit L2 (nmf.m:132-134);
+        # transfer the norms into H first so W @ H is preserved.
+        norms = torch.sqrt(torch.clamp_min(torch.sum(Wn * Wn, dim=0), eps))
+        w_list = [(Wn / norms[None, :]).to(dtype)]
+        h_list = [(Hn * norms[:, None]).to(dtype)]
+        w_was_seq = h_was_seq = was_seq
     if w_list is None:
         w_list = default_w_init(gen, m, ks, dtype, device)
         w_was_seq = was_seq
@@ -326,7 +338,13 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
     wsp = per_column(w_sp, ks, dtype, device)
     hsp = per_column(h_sp, ks, dtype, device)
     if weights is not None:
-        weights = _prepare_weights(weights, dtype, device, (m, n))
+        weights = prepare_weights(weights, dtype, device, (m, n))
+    data_dtype = cfg.get("data_dtype")
+    if data_dtype is not None:
+        if method != "gram":
+            raise ValueError("data_dtype is only supported with the "
+                             "euclidean Gram method")
+        V = V.to(torch_dtype(data_dtype))
 
     inner = cfg.get("inner_iters", 1)
     inner = 1 if inner is None else int(inner)

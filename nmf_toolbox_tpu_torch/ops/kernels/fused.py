@@ -29,7 +29,7 @@ wt_dot_phi_launches = 0
 cost_terms_launches = 0
 
 
-def _on_cpu(V, W, H, mode) -> bool:
+def _on_cpu(V, W, H, mode, max_k=MAX_K) -> bool:
     """Validate the operands; True for CPU tensors, False for CUDA ones."""
     if mode not in MODES:
         raise ValueError(f"mode must be 'kl' or 'is', got {mode!r}")
@@ -41,8 +41,8 @@ def _on_cpu(V, W, H, mode) -> bool:
     if W.shape[0] != m or tuple(H.shape) != (k, n):
         raise ValueError(f"shapes V {tuple(V.shape)}, W {tuple(W.shape)}, "
                          f"H {tuple(H.shape)} do not form V ~ W @ H")
-    if m < 1 or n < 1 or not 1 <= k <= MAX_K:
-        raise ValueError(f"need m, n >= 1 and 1 <= k <= {MAX_K}; "
+    if m < 1 or n < 1 or not 1 <= k <= max_k:
+        raise ValueError(f"need m, n >= 1 and 1 <= k <= {max_k}; "
                          f"got m={m}, n={n}, k={k}")
     if not V.device == W.device == H.device:
         raise ValueError("V, W and H must lie on one device")

@@ -214,8 +214,7 @@ def test_fused_k_limit():
             pkg.nmf(V, 1025, divergence="kl", method="fused", maxiter=1)
 
 
-@pytest.mark.parametrize("cfg", [dict(init="nndsvd"), dict(data_dtype="bfloat16"),
-                                 dict(mesh=object()), dict(callback=print)])
+@pytest.mark.parametrize("cfg", [dict(mesh=object()), dict(callback=print)])
 def test_not_ported_options_raise(cfg):
     V = np.random.default_rng(8).uniform(0.1, 1, (20, 20))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
