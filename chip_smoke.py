@@ -11,11 +11,16 @@ without printing the last line:
 
 0. device check (no CUDA device: exit 1), the card's name and power
    limit from nvidia-smi, TF32 off for matmuls and cuDNN;
-1. build the CUDA kernels from csrc/ with nvcc;
+1. build the CUDA kernels from csrc/ with nvcc; each kernel's registers
+   and spills, and for the W- and H-phase kernels (phi_dot_ht,
+   wt_dot_phi) the count of tensor-core instructions (HMMA / HGMMA) in the
+   library's SASS from ``cuobjdump -sass``, which must not be 0;
 2. each kernel in both modes against its plain PyTorch version on the
    card at 300x700 k=40, 40 000x10 000 k=100 and 2 000x3 000 k=1024:
    max relative error <= 1e-4 (tests/test_pallas.py's f32 threshold),
-   cost_terms bit-identical over two runs, kernel and plain times; the
+   phase kernels and cost_terms bit-identical over two runs, kernel and
+   plain times and the kernel's TFLOP/s (4mnk kl / 6mnk is for the
+   phases, 2mnk for cost_terms' V_hat) at the main shape; the
    streamed KL W-phase kernel (kl_phi_dot_ht_dma, k <= 512) likewise at
    300x700 k=40 and the W-phase comparison's three shapes, and a
    ValueError at k=1024;
@@ -50,6 +55,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -60,6 +66,10 @@ KERNELS = (("phi_dot_ht", "nmf_toolbox_tpu/ops/pallas/fused.py:128"),
            ("wt_dot_phi", "nmf_toolbox_tpu/ops/pallas/fused.py:218"),
            ("cost_terms", "nmf_toolbox_tpu/ops/pallas/fused.py:292"))
 SOURCE = "nmf_toolbox_tpu_torch/csrc/fused.cu"
+# The tensor-core kernels of SOURCE: wrapper, kernel template and the
+# template arguments (TRANS) that select it in the mangled name.
+TENSOR_CORE = (("phi_dot_ht", "phase_kernel", "ILb0E"),
+               ("wt_dot_phi", "phase_kernel", "ILb1E"))
 DMA = ("kl_phi_dot_ht_dma", "nmf_toolbox_tpu/ops/pallas/fused_dma.py:85",
        "nmf_toolbox_tpu_torch/csrc/fused_dma.cu")
 CHECK_SHAPES = ((300, 700, 40), (40_000, 10_000, 100), (2_000, 3_000, 1024))
@@ -132,12 +142,44 @@ def phase0_device(torch):
         f"CUDA {torch.version.cuda}")
 
 
+def flops(name, mode, m, n, k):
+    """The FLOPs a kernel's algorithm needs: V_hat (2mnk) plus one (kl) or
+    two (is) contractions of 2mnk for the phases; V_hat for cost_terms."""
+    if name == "cost_terms":
+        return 2 * m * n * k
+    return (4 if mode == "kl" else 6) * m * n * k
+
+
+def tensor_core_counts(_build):
+    """HMMA / HGMMA instructions per kernel function of the built library,
+    from cuobjdump -sass (beside nvcc in the toolkit)."""
+    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
 def phase1_build():
     from nmf_toolbox_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     _build.load()
     say(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
         f"({_build.library_path().name}, from {len(_build.sources())} sources)")
+    counts = tensor_core_counts(_build)
+    for wrapper, template, selector in TENSOR_CORE:
+        mine = {fn: c for fn, c in counts.items() if template in fn and selector in fn}
+        total = sum(mine.values())
+        say(f"phase 1 sass {wrapper}: {total} tensor-core instructions (HMMA/HGMMA) "
+            f"in {len(mine)} instantiations of {template} ({sorted(mine.values())})")
+        if total == 0:
+            raise AssertionError(f"{wrapper}: no HMMA or HGMMA in the library's SASS")
     # Each kernel's registers and spills, from nvcc's -Xptxas -v output.
     name = None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
@@ -174,11 +216,10 @@ def phase2_kernels(torch, fk, main_V):
                 if not rel <= REL_TOL:
                     raise AssertionError(f"{name} {mode} at {m}x{n} k={k}: max "
                                          f"relative error {rel:.3g} > {REL_TOL}")
-                if name == "cost_terms":
-                    again = as_tuple(fn(V, W, H, mode))
-                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                        raise AssertionError(f"cost_terms {mode} at {m}x{n} k={k}: "
-                                             "two runs differ in their bits")
+                again = as_tuple(fn(V, W, H, mode))
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{name} {mode} at {m}x{n} k={k}: "
+                                         "two runs differ in their bits")
                 s = stats[name]
                 s["max_abs_err"] = max(s["max_abs_err"], abs_)
                 s["max_rel_err"] = max(s["max_rel_err"], rel)
@@ -187,8 +228,11 @@ def phase2_kernels(torch, fk, main_V):
                     ms = cuda_ms(torch, lambda: fn(V, W, H, mode), 5)
                     plain = cuda_ms(torch, lambda: ref(V, W, H, mode), 5)
                     suffix = "" if mode == "kl" else "_is"
+                    tflops = flops(name, mode, m, n, k) / (ms * 1e-3) / 1e12
                     s["ms" + suffix], s["plain_ms" + suffix] = ms, plain
-                    line += f", kernel {ms:.3f} ms, plain {plain:.3f} ms"
+                    s["tflops" + suffix] = tflops
+                    line += (f", kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
+                             f"plain {plain:.3f} ms")
                 say(line)
         del V, W, H
     return stats
@@ -545,6 +589,7 @@ def main():
             "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "ms_is": s["ms_is"], "plain_ms_is": s["plain_ms_is"],
+            "tflops": s["tflops"], "tflops_is": s["tflops_is"],
         })
     name, replaces, source = DMA
     kernels.append({

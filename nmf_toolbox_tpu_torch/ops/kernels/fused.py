@@ -4,8 +4,8 @@ PyTorch counterpart of ``nmf_toolbox_tpu/ops/pallas/fused.py``.  The KL
 and IS gradient fields are nonlinear in the reconstruction
 (Phi = V / (W H), V / (W H)^2, 1 / (W H) — nmf.m:151-156), so unlike the
 Euclidean Gram path the m-by-n reconstruction is required.  These
-kernels keep it out of device memory: each block rebuilds V_hat tiles in
-registers from W and H, applies the field and contracts it in the same
+kernels keep it out of device memory: each block rebuilds V_hat tiles on
+the chip from W and H, applies the field and contracts it in the same
 pass.  The CUDA source is ``csrc/fused.cu``.
 
 Each wrapper takes the JAX signature ``(V, W, H, mode)`` with ``mode`` in
@@ -88,19 +88,29 @@ def _raise_on(lib, fn_name, err):
 #   called every iteration by the fused W update (models/nmf.py:206,213).
 # Bound on the H100: arithmetic.  It does 4mnk FLOPs (kl; 6mnk for is: V_hat
 #   and one or two contractions) against one 4mn-byte read of V, about
-#   100 FLOP/byte at k = 100, so the f32 FMA pipes and the shared-memory
-#   loads that feed them bound it, not HBM.
-# Design: a block owns 64 rows of the output and loops over n, so the
-#   reduction over n stays inside the block (the Pallas kernel's
-#   sequential grid axis has no GPU equivalent).  Where 64-row blocks are
-#   too few to fill the card, n is cut into spans over the grid, each
-#   writing a partial output that a second kernel adds in span order
-#   (deterministic).  V_hat tiles are built from 4x4 register tiles; the
-#   field goes through shared memory and is contracted with 4x8 register
-#   tiles of the (m, k) accumulators, which stay in registers for the
-#   whole loop.  k is cut into 128-wide output chunks over the grid, so
-#   registers and shared memory do not grow with k; k > 128 rebuilds
-#   V_hat once per chunk.
+#   100 FLOP/byte at k = 100, so the tensor cores and the latency of the
+#   mma chains that feed them bound it, not HBM.  Registers (the (m, k)
+#   accumulators) cap it at 2-3 blocks of 4 warps per SM.
+# Design: two chained GEMMs per tile, shaped like FlashAttention's forward
+#   pass, on TF32 tensor cores (mma.sync m16n8k8) in 3xTF32: each f32
+#   operand is split into hi = tf32(x) and lo = tf32(x - hi) and a product
+#   is lo*hi + hi*lo + hi*hi with f32 accumulation, which keeps the f32
+#   plain version's accuracy.  A block owns 64 rows of the output (16 per
+#   warp) and loops over n, so the reduction over n stays inside the block
+#   (the Pallas kernel's sequential grid axis has no GPU equivalent).  Per
+#   n-tile (24 columns for kl, 32 for is) a warp builds its V_hat fragment,
+#   forms the field from the f32 accumulator and feeds it to the second
+#   product from registers, with n permuted inside each group of 8 so that
+#   the accumulator layout is the operand layout.  The tile's products go
+#   to zeroed fragments and reach the running output through one rounded
+#   f32 add per tile, as the tensor cores truncate while they accumulate.
+#   Tiles of W, H and V stream through a two-stage cp.async ring; each H
+#   tile is split into hi and lo once, in shared memory, for all warps.
+#   Where 64-row blocks are too few to fill the card, n is cut into spans
+#   over the grid, chosen from the kernel's occupancy, each writing a
+#   partial output that a second kernel adds in span order
+#   (deterministic).  k is padded to 8 and cut into output chunks of at
+#   most 128 over the grid; k > 128 rebuilds V_hat once per chunk.
 # ---------------------------------------------------------------------------
 
 def phi_dot_ht_reference(V, W, H, mode: str = "kl"):
@@ -134,12 +144,12 @@ def phi_dot_ht(V, W, H, mode: str = "kl"):
 # Bound on the H100: arithmetic, as the W-phase (same FLOPs and bytes).
 #   Its output alone gives few blocks (157 at n = 10 000 for 132 SMs), so
 #   filling the card is part of the problem.
-# Design: the mirror of the W-phase.  A block owns 64 columns of the
-#   (k, n) output and loops over m, cut into spans over the grid (partial
-#   outputs added in span order) until there are about 8 blocks per SM;
-#   V_hat from 4x4 register tiles, the contraction with 8x4 register
-#   tiles, the W rows it needs staged in shared memory in 128-wide
-#   k-chunks.
+# Design: the W-phase of the transposed problem,
+#   wt_dot_phi(V, W, H) = phi_dot_ht(V', H', W')', run by the same kernel
+#   body: it reads its tiles of V, W and H through transposing accessors
+#   and writes the (k, n) output transposed.  A block owns 64 columns of
+#   the output and loops over m, cut into spans over the grid (partial
+#   outputs added in span order).
 # ---------------------------------------------------------------------------
 
 def wt_dot_phi_reference(V, W, H, mode: str = "kl"):

@@ -136,8 +136,10 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", KERNELS)
 @pytest.mark.parametrize("mode", ["kl", "is"])
-@pytest.mark.parametrize("k", [40, 100, 1024])
-@pytest.mark.parametrize("m,n", [(300, 700), (1000, 2000)])  # one span; several
+# k: the MMA granule's edges (1, 8), one chunk (40, 100), two chunks (129),
+# eight (1024); (m, n): one span, several, and no multiple of any tile.
+@pytest.mark.parametrize("k", [1, 8, 40, 100, 129, 1024])
+@pytest.mark.parametrize("m,n", [(300, 700), (1000, 2000), (257, 513)])
 def test_kernel_matches_plain_version_on_card(cuda, name, mode, k, m, n):
     V, W, H = (torch.from_numpy(x).to(cuda) for x in make(m, n, k))
     fn = getattr(fk, name)
@@ -152,6 +154,20 @@ def test_kernel_matches_plain_version_on_card(cuda, name, mode, k, m, n):
     if name == "cost_terms":  # fixed-order reduction: same bits every run
         again = as_tuple(fn(V, W, H, mode))
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["phi_dot_ht", "wt_dot_phi"])
+@pytest.mark.parametrize("mode", ["kl", "is"])
+@pytest.mark.parametrize("m,n,k", [(1000, 2000, 100), (4000, 3000, 100), (257, 513, 129)])
+def test_phase_kernels_are_deterministic_on_card(cuda, name, mode, m, n, k):
+    """Span partials are added in a fixed order: same bits on every call."""
+    V, W, H = (torch.from_numpy(x).to(cuda) for x in make(m, n, k, seed=5))
+    fn = getattr(fk, name)
+    first = as_tuple(fn(V, W, H, mode))
+    for _ in range(2):
+        again = as_tuple(fn(V, W, H, mode))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
