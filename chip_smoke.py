@@ -12,18 +12,22 @@ without printing the last line:
 0. device check (no CUDA device: exit 1), the card's name and power
    limit from nvidia-smi, TF32 off for matmuls and cuDNN;
 1. build the CUDA kernels from csrc/ with nvcc; each kernel's registers
-   and spills, and for the W- and H-phase kernels (phi_dot_ht,
-   wt_dot_phi) the count of tensor-core instructions (HMMA / HGMMA) in the
-   library's SASS from ``cuobjdump -sass``, which must not be 0;
+   and spills, and for the tensor-core kernels of fused.cu (phi_dot_ht,
+   wt_dot_phi, cost_terms) the count of tensor-core instructions (HMMA /
+   HGMMA) in the library's SASS from ``cuobjdump -sass``, which must not
+   be 0;
 2. each kernel in both modes against its plain PyTorch version on the
    card at 300x700 k=40, 40 000x10 000 k=100 and 2 000x3 000 k=1024:
    max relative error <= 1e-4 (tests/test_pallas.py's f32 threshold),
    phase kernels and cost_terms bit-identical over two runs, kernel and
    plain times and the kernel's TFLOP/s (4mnk kl / 6mnk is for the
-   phases, 2mnk for cost_terms' V_hat) at the main shape; the
-   streamed KL W-phase kernel (kl_phi_dot_ht_dma, k <= 512) likewise at
-   300x700 k=40 and the W-phase comparison's three shapes, and a
-   ValueError at k=1024;
+   phases, 2mnk for cost_terms' V_hat) at the main shape, beside its
+   bound there: the larger of its FLOPs at the f32-accurate tensor-core
+   rate (3xTF32, 495 / 3 = 165 TFLOP/s) and its bytes (V, W and H read
+   once, the output written once) at 3.35 TB/s, with which of the two
+   binds and the kernel's share of it; the streamed KL W-phase kernel
+   (kl_phi_dot_ht_dma, k <= 512) likewise at 300x700 k=40 and the
+   W-phase comparison's three shapes, and a ValueError at k=1024;
 3. the main path, ``nmf(method="fused")`` at 40 000x10 000 rank 100 f32,
    KL and IS, 10 iterations, with every kernel's launch counter set to 0
    before and required above 0 after; costs finite, KL non-increasing,
@@ -32,7 +36,9 @@ without printing the last line:
 4. the default Euclidean ``gram`` path at 100 000x10 000 rank 200 f32,
    10 iterations (no kernel of its own: two cuBLAS GEMMs per iteration);
 5. bench.py's objective check: f32 port vs the f64 NumPy oracle at
-   1000x500 rank 25 over 200 iterations, within 1e-5 relative;
+   1000x500 rank 25 over 200 iterations, within 1e-5 relative; the port
+   gets NumPy arrays and no ``device=``, so its factors (and an NNDSVD
+   seed of the same V) must land on the card;
 6. the W-phase comparison (benchmarks/pallas_compare.py's op and
    shapes): (V / (W H)) @ H' as the plain composition, phi_dot_ht and
    kl_phi_dot_ht_dma, ms by CUDA events, against the one-V-read floor
@@ -40,8 +46,9 @@ without printing the last line:
 7. nmf_hals at 100 000x10 000 rank 200 f32: 20 plain sweeps (ms/iter,
    the sweeps' share), 20 extrapolated, bench.py's time-to-tolerance loop
    from random and NNDSVD-seeded inits (seeding inside the clock);
-   weighted HALS at 20 000x2 000 rank 50; f32 card vs an f64 NumPy HALS
-   at 1000x500 rank 25 over 50 sweeps, within 1e-4 relative;
+   weighted HALS at 20 000x2 000 rank 50; f32 card (NumPy inputs, no
+   ``device=``) vs an f64 NumPy HALS at 1000x500 rank 25 over 50 sweeps,
+   within 1e-4 relative;
 8. nmf on the gram path at 100 000x10 000 rank 200 with init='nndsvd',
    in f32 and with data_dtype='bfloat16': costs finite and
    non-increasing, the bf16 final cost within 1e-2 of the f32 one.
@@ -49,7 +56,11 @@ without printing the last line:
 Then a JSON line of per-kernel results and, last, the device line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
 three fused kernels, phase 6 (the only path that runs it) for
-kl_phi_dot_ht_dma, each counter set to 0 just before.
+kl_phi_dot_ht_dma, each counter set to 0 just before;
+``launches_per_iter`` is what one fused iteration launches (1 for each
+fused kernel at cost_every=1, 0 for kl_phi_dot_ht_dma, which no solver
+calls).  ``library_ms`` is null for all four: no single PyTorch call
+computes any of them.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -69,7 +80,8 @@ SOURCE = "nmf_toolbox_tpu_torch/csrc/fused.cu"
 # The tensor-core kernels of SOURCE: wrapper, kernel template and the
 # template arguments (TRANS) that select it in the mangled name.
 TENSOR_CORE = (("phi_dot_ht", "phase_kernel", "ILb0E"),
-               ("wt_dot_phi", "phase_kernel", "ILb1E"))
+               ("wt_dot_phi", "phase_kernel", "ILb1E"),
+               ("cost_terms", "cost_kernel", "ILb"))
 DMA = ("kl_phi_dot_ht_dma", "nmf_toolbox_tpu/ops/pallas/fused_dma.py:85",
        "nmf_toolbox_tpu_torch/csrc/fused_dma.cu")
 CHECK_SHAPES = ((300, 700, 40), (40_000, 10_000, 100), (2_000, 3_000, 1024))
@@ -87,6 +99,11 @@ REL_DECREASE_TOL = 1e-4  # bench.py:52
 TOL_CHUNK, TOL_CAP = 20, 600  # bench.py:103,133
 ITERS = 10
 HALS_ITERS = 20
+# The card's peaks for a kernel's bound (H100 SXM data sheet): f32-accurate
+# tensor-core work in 3xTF32 (three TF32 products per f32 product) and
+# device memory.
+PEAK_FLOPS = 495e12 / 3
+PEAK_BYTES = 3.35e12
 
 
 def say(msg):
@@ -150,6 +167,18 @@ def flops(name, mode, m, n, k):
     return (4 if mode == "kl" else 6) * m * n * k
 
 
+def bound(name, mode, m, n, k):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for a kernel's work, the larger of its FLOPs at PEAK_FLOPS and its
+    bytes (V, W, H read once, its outputs written once) at PEAK_BYTES."""
+    outs = 2 if mode == "is" else 1
+    out_floats = {"phi_dot_ht": m * k, "kl_phi_dot_ht_dma": m * k,
+                  "wt_dot_phi": k * n, "cost_terms": 1}[name] * outs
+    nbytes = 4 * (m * n + m * k + k * n + out_floats)
+    t_ops, t_bytes = flops(name, mode, m, n, k) / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def tensor_core_counts(_build):
     """HMMA / HGMMA instructions per kernel function of the built library,
     from cuobjdump -sass (beside nvcc in the toolkit)."""
@@ -190,6 +219,9 @@ def phase1_build():
         elif "Used" in line and "registers" in line and name:
             short = name.split("_cu_")[-1] if "_cu_" in name else name
             say(f"phase 1 ptxas {short}: {line.split(':', 1)[1].strip()}; {spills}")
+            if (any(template in name for _, template, _ in TENSOR_CORE)
+                    and "0 bytes spill stores, 0 bytes spill loads" not in spills):
+                raise AssertionError(f"{short} spills: {spills}")
             name = None
 
 
@@ -229,10 +261,13 @@ def phase2_kernels(torch, fk, main_V):
                     plain = cuda_ms(torch, lambda: ref(V, W, H, mode), 5)
                     suffix = "" if mode == "kl" else "_is"
                     tflops = flops(name, mode, m, n, k) / (ms * 1e-3) / 1e12
+                    b_ms, b_by = bound(name, mode, m, n, k)
                     s["ms" + suffix], s["plain_ms" + suffix] = ms, plain
                     s["tflops" + suffix] = tflops
+                    s["bound_ms" + suffix], s["bound_by" + suffix] = b_ms, b_by
                     line += (f", kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
-                             f"plain {plain:.3f} ms")
+                             f"plain {plain:.3f} ms, bound {b_ms:.3f} ms by "
+                             f"{b_by} ({100 * b_ms / ms:.1f}% of bound)")
                 say(line)
         del V, W, H
     return stats
@@ -269,7 +304,10 @@ def phase2_dma(torch, dk, main_V):
             stats["ms"] = cuda_ms(torch, lambda: dk.kl_phi_dot_ht_dma(V, W, H), 5)
             stats["plain_ms"] = cuda_ms(
                 torch, lambda: dk.kl_phi_dot_ht_dma_reference(V, W, H), 5)
-            line += f", kernel {stats['ms']:.3f} ms, plain {stats['plain_ms']:.3f} ms"
+            stats["bound_ms"], stats["bound_by"] = bound(DMA[0], "kl", m, n, k)
+            line += (f", kernel {stats['ms']:.3f} ms, plain {stats['plain_ms']:.3f} ms, "
+                     f"bound {stats['bound_ms']:.3f} ms by {stats['bound_by']} "
+                     f"({100 * stats['bound_ms'] / stats['ms']:.1f}% of bound)")
         say(line)
         del V, W, H
     m, n, k = CHECK_SHAPES[2]
@@ -335,7 +373,9 @@ def phase4_gram(torch, nmf):
 
 def phase5_objective(torch, nmf):
     """bench.py:55-88 on the card: literal nmf.m Euclidean updates in f64
-    NumPy against the port's f32 run."""
+    NumPy against the port's f32 run, which gets NumPy inputs and no
+    device= and must land on the card (nndsvd likewise)."""
+    from nmf_toolbox_tpu_torch.utils.init import nndsvd
     rng = np.random.default_rng(42)
     V = rng.uniform(0.05, 1.0, (1000, 500))
     W0 = rng.uniform(size=(1000, 25))
@@ -351,9 +391,13 @@ def phase5_objective(torch, nmf):
         Vh = W @ H
         H = H * ((W.T @ V) / np.maximum(W.T @ Vh, eps))
     c_oracle = 0.5 * np.sum((V - W @ H) ** 2)
+    # NumPy inputs and no device=: the port's default puts them on the card.
     r = nmf(V.astype(np.float32), 25, W_init=W0.astype(np.float32),
-            H_init=H0.astype(np.float32), maxiter=200, tolerance=1e-30,
-            device="cuda")
+            H_init=H0.astype(np.float32), maxiter=200, tolerance=1e-30)
+    Ws, _ = nndsvd(V.astype(np.float32), 25)
+    if r.W.device.type != "cuda" or Ws.device.type != "cuda":
+        raise AssertionError(f"NumPy V ran on {r.W.device} (nmf), {Ws.device} "
+                             "(nndsvd), not on the card")
     Wf, Hf = (x.cpu().numpy().astype(np.float64) for x in (r.W, r.H))
     rel = abs(0.5 * np.sum((V - Wf @ Hf) ** 2) - c_oracle) / c_oracle
     if not rel <= ORACLE_RTOL:
@@ -521,7 +565,9 @@ def phase7_hals(torch, nmf_hals, V):
     Wf, Hf = hals_oracle(Vo, Wo, Ho, 50, EPS)
     c_oracle = 0.5 * np.sum((Vo - Wf @ Hf) ** 2)
     r = nmf_hals(Vo.astype(np.float32), 25, W_init=Wo.astype(np.float32),
-                 H_init=Ho.astype(np.float32), maxiter=50, device="cuda", **kw)
+                 H_init=Ho.astype(np.float32), maxiter=50, **kw)
+    if r.W.device.type != "cuda":
+        raise AssertionError(f"nmf_hals ran a NumPy V on {r.W.device}, not the card")
     Wc, Hc = (x.cpu().numpy().astype(np.float64) for x in (r.W, r.H))
     rel = abs(0.5 * np.sum((Vo - Wc @ Hc) ** 2) - c_oracle) / c_oracle
     if not rel <= HALS_ORACLE_RTOL:
@@ -586,17 +632,22 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": sum(main_path[d]["launches"][name] for d in ("kl", "is")),
+            "launches_per_iter": 1,
             "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": None,
             "ms_is": s["ms_is"], "plain_ms_is": s["plain_ms_is"],
+            "bound_ms_is": s["bound_ms_is"], "bound_by_is": s["bound_by_is"],
             "tflops": s["tflops"], "tflops_is": s["tflops_is"],
         })
     name, replaces, source = DMA
     kernels.append({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": dma_launches, "max_abs_err": dma_stats["max_abs_err"],
+        "launches": dma_launches, "launches_per_iter": 0,
+        "max_abs_err": dma_stats["max_abs_err"],
         "max_rel_err": dma_stats["max_rel_err"], "ms": dma_stats["ms"],
-        "plain_ms": dma_stats["plain_ms"],
+        "plain_ms": dma_stats["plain_ms"], "bound_ms": dma_stats["bound_ms"],
+        "bound_by": dma_stats["bound_by"], "library_ms": None,
     })
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ matching row block.  Per-source scalars (sparsity) are promoted to
 per-column / per-row vectors, so the hot loop has no per-source logic.
 
 Devices are explicit: a tensor input stays on its device, a NumPy input
-goes to the ``device=`` the caller names (default ``"cpu"``).  Default
+goes to the ``device=`` the caller names, and to the card when it names
+none (with no card that raises: pass ``device="cpu"``).  Default
 inits come from a ``torch.Generator`` seeded with ``seed``; they cannot
 reproduce the JAX package's ``jax.random`` draws, so cross-package
 parity is held with injected ``W_init``/``H_init``.
@@ -85,9 +86,10 @@ def resolve_dtype(V, dtype) -> torch.dtype:
 
 
 def resolve_device(V, device) -> torch.device:
-    """The run's device: a tensor's own device, else ``device`` (default
-    CPU).  A tensor on another device than the one named is an error,
-    never a silent copy."""
+    """The run's device: a tensor's own device, else ``device``, else the
+    card.  A tensor on another device than the one named is an error,
+    never a silent copy; an array with no ``device`` and no card raises,
+    never a silent run on the CPU."""
     if torch.is_tensor(V):
         d = None if device is None else torch.device(device)
         if d is not None and (d.type != V.device.type
@@ -95,7 +97,13 @@ def resolve_device(V, device) -> torch.device:
             raise ValueError(f"V lies on {V.device} but device={device!r} "
                              "was given; move V or drop device=")
         return V.device
-    return torch.device("cpu" if device is None else device)
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("nmf_toolbox_tpu_torch runs on a CUDA card unless "
+                           "told otherwise and finds none; pass device=\"cpu\" "
+                           "to run on the CPU")
+    return torch.device("cuda")
 
 
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:

@@ -41,10 +41,16 @@
 // occupancy.  k is padded to 8 and cut into output chunks of at most 128
 // over blockIdx.y; each chunk's block rebuilds V_hat over all of k.
 //
-// cost (cost_tile_kernel): V_hat tiles from 4x4 register tiles of f32
-// FMAs on the CUDA cores; each block writes its tile's sum to a partial
-// buffer and a one-block kernel adds the partials in a fixed order, so
-// repeated runs give identical bits (no atomics).
+// cost (cost_kernel): one GEMM tile per block with a reducing epilogue.
+// A block of 8 warps rebuilds a 128 x 128 tile of V_hat on the tensor
+// cores in the same 3xTF32 as the phases, 64 x 32 per warp, streaming k
+// in slabs of 32 through a two-stage cp.async ring; each warp splits the
+// operands it reads as they leave shared memory.  The V tile follows
+// into the ring by cp.async, and the epilogue forms the terms in
+// registers in the accumulator layout and sums them in a fixed order
+// (f32 per row of a thread, then f64 over rows, warp and block) into one
+// partial per block; a one-block kernel adds the partials in a fixed
+// order, so repeated runs give identical bits (no atomics).
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError().
@@ -55,62 +61,7 @@
 
 namespace {
 
-constexpr int NT = 256;   // threads per cost block, viewed as a 16 x 16 grid
-constexpr int TM = 64;    // V rows per cost tile (4 per thread row)
-constexpr int TN = 64;    // V columns per cost tile (4 per thread column)
-constexpr int KB = 16;    // k-depth of one V_hat step
-constexpr int WSTR = TM + 4;  // padded row of the transposed W step buffer
-
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// acc[a][b] = V_hat[i0 + ty*4 + a, j0 + tx + 16*b] for the TM x TN tile,
-// summed over c = 0..k-1 in order with f32 FMAs.  W and H stream through
-// the step buffers Ws[KB][WSTR] (transposed) and Hs[KB][TN].  Entries
-// outside the matrix come out 0.  Ends with a barrier, so the caller may
-// reuse the buffers.
-__device__ __forceinline__ void vhat_tile(const float* __restrict__ W,
-                                          const float* __restrict__ H,
-                                          int m, int n, int k, int i0, int j0,
-                                          float* Ws, float* Hs,
-                                          float (&acc)[4][TN / 16]) {
-  constexpr int RN = TN / 16;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < RN; ++b) acc[a][b] = 0.f;
-
-  for (int c0 = 0; c0 < k; c0 += KB) {
-#pragma unroll
-    for (int q = 0; q < TM * KB / NT; ++q) {  // lanes run along c: coalesced
-      const int e = tid + q * NT, r = e / KB, c = e % KB;
-      const int gi = i0 + r, gc = c0 + c;
-      Ws[c * WSTR + r] = (gi < m && gc < k) ? W[(size_t)gi * k + gc] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < KB * TN / NT; ++q) {  // lanes run along t: coalesced
-      const int e = tid + q * NT, c = e / TN, t = e % TN;
-      const int gc = c0 + c, gj = j0 + t;
-      Hs[c * TN + t] = (gc < k && gj < n) ? H[(size_t)gc * n + gj] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < KB; ++c) {
-      const float4 w = *reinterpret_cast<const float4*>(&Ws[c * WSTR + ty * 4]);
-      float h[RN];
-#pragma unroll
-      for (int b = 0; b < RN; ++b) h[b] = Hs[c * TN + tx + 16 * b];
-#pragma unroll
-      for (int b = 0; b < RN; ++b) {
-        acc[0][b] = fmaf(w.x, h[b], acc[0][b]);
-        acc[1][b] = fmaf(w.y, h[b], acc[1][b]);
-        acc[2][b] = fmaf(w.z, h[b], acc[2][b]);
-        acc[3][b] = fmaf(w.w, h[b], acc[3][b]);
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // W-phase: out1 = Phi1 @ H', out2 = Phi2 @ H' (IS only), both (m, k).
@@ -187,14 +138,16 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // dst[r * dstr + c] = src[(r0 + r) * sstr + c0 + c] for r < rows, c < cols,
-// zero where r0 + r >= rlim or c0 + c >= clim.  vec: 16-byte copies (cols,
-// c0, clim and sstr multiples of 4, src 16-byte aligned).
+// zero where r0 + r >= rlim or c0 + c >= clim, by a block of NTH threads.
+// vec: 16-byte copies (cols, c0, clim and sstr multiples of 4, src 16-byte
+// aligned).
+template <int NTH>
 __device__ __forceinline__ void copy_tile(float* dst, int dstr, const float* src,
                                           size_t sstr, int r0, int c0, int rows,
                                           int cols, int rlim, int clim, bool vec) {
-  // Copies of w floats, cq per row; thread e takes copies e, e + PNT, ...,
+  // Copies of w floats, cq per row; thread e takes copies e, e + NTH, ...,
   // stepping (r, c) without a division per copy.
-  const int w = vec ? 4 : 1, cq = cols / w, dr = PNT / cq, dc = PNT % cq;
+  const int w = vec ? 4 : 1, cq = cols / w, dr = NTH / cq, dc = NTH % cq;
   int r = threadIdx.x / cq, c = threadIdx.x % cq;
   while (r < rows) {
     const int gr = r0 + r, gc = c0 + c * w;
@@ -294,13 +247,13 @@ phase_kernel(const float* __restrict__ V, const float* __restrict__ W,
     float* Bs = Bs0 + st * lay.b;
     float* Vs = Vs0 + st * lay.v;
     if (TRANS) {
-      if (S > 1 || q == 0) copy_tile(As, HA_STR, H, n, c0, r0, kcw, PR, k, n, vec);
-      copy_tile(Bs, kstr, W, k, l0, c0, PL, kcw, m, k, vec);
-      if (u == S - 1) copy_tile(Vs, HV_STR, V, n, l0, r0, PL, PR, m, n, vec);
+      if (S > 1 || q == 0) copy_tile<PNT>(As, HA_STR, H, n, c0, r0, kcw, PR, k, n, vec);
+      copy_tile<PNT>(Bs, kstr, W, k, l0, c0, PL, kcw, m, k, vec);
+      if (u == S - 1) copy_tile<PNT>(Vs, HV_STR, V, n, l0, r0, PL, PR, m, n, vec);
     } else {
-      if (S > 1 || q == 0) copy_tile(As, kstr, W, k, r0, c0, PR, kcw, m, k, vec);
-      copy_tile(Bs, CSTR, H, n, c0, l0, kcw, PL, k, n, vec);
-      if (u == S - 1) copy_tile(Vs, CSTR, V, n, r0, l0, PR, PL, m, n, vec);
+      if (S > 1 || q == 0) copy_tile<PNT>(As, kstr, W, k, r0, c0, PR, kcw, m, k, vec);
+      copy_tile<PNT>(Bs, CSTR, H, n, c0, l0, kcw, PL, k, n, vec);
+      if (u == S - 1) copy_tile<PNT>(Vs, CSTR, V, n, r0, l0, PR, PL, m, n, vec);
     }
   };
 
@@ -462,12 +415,14 @@ phase_kernel(const float* __restrict__ V, const float* __restrict__ W,
   }
 }
 
+constexpr int SUM_NT = 256;  // threads per span-sum block
+
 // out[i] = sum over spans z, in order, of part[z * count + i].
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(SUM_NT)
 sum_spans_kernel(const float* __restrict__ part, int spans, size_t count,
                  float* __restrict__ out) {
-  const size_t stride = (size_t)gridDim.x * NT;
-  for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < count; i += stride) {
+  const size_t stride = (size_t)gridDim.x * SUM_NT;
+  for (size_t i = (size_t)blockIdx.x * SUM_NT + threadIdx.x; i < count; i += stride) {
     float s = part[i];
     for (int z = 1; z < spans; ++z) s += part[(size_t)z * count + i];
     out[i] = s;
@@ -478,12 +433,178 @@ sum_spans_kernel(const float* __restrict__ part, int spans, size_t count,
 // Cost terms.  kl: s1 = sum V * log(V_hat).  is: s1 = sum log(V_hat),
 // s2 = sum V / V_hat.  Terms are f32 (as the Pallas kernel forms them);
 // their sums are f64, in a fixed order.
+//
+// A block rebuilds the CM x CN tile of V_hat at (blockIdx.y, blockIdx.x):
+// its 8 warps are 2 x 4, warp w owning rows 64 (w / 4).. and columns
+// 32 (w % 4).., 4 x 4 m16n8k8 accumulators, so each k-step issues 16
+// independent chains of three products.  Two blocks share an SM (117
+// registers).  Measured against this design on an H100 (PERF.md §6): 4
+// warps of 64 x 64 (198 registers) are 17-25 % slower; splitting each
+// slab into hi and lo once in shared memory, 14-29 % slower; reading V
+// from device memory in the accumulator layout in the epilogue, 7-14 %
+// slower.
+// The tensor cores truncate as they accumulate; one chain per output
+// holds 3 k / 8 adds (384 at k = 1024), which keeps the sums within 1e-4
+// (tests/test_torch_tf32.py emulates it).
 // ---------------------------------------------------------------------------
 
+constexpr int CM = 128, CN = 128;   // V_hat tile per block
+constexpr int CWM = 64, CWN = 32;   // V_hat tile per warp
+constexpr int CMI = CWM / 16, CNJ = CWN / 8;      // m16n8 tiles per warp
+constexpr int CNT = 32 * (CM / CWM) * (CN / CWN);  // threads per cost block: 8 warps
+constexpr int CK = 32;              // k-depth of one slab: 4 k-steps of 8
+// Padded strides, in floats: the A slab [r][c] is read at (g, t) (a stride
+// of 4 mod 8), the B slab [c][j] at (t, g) (8 or 24 mod 32); either way a
+// warp's fragment load hits 32 distinct banks.
+constexpr int CA_STR = CK + 4, CB_STR = CN + 8;
+constexpr int CA = CM * CA_STR, CB = CK * CB_STR;  // floats of one slab each
 constexpr int RED_NT = 1024;
 
-constexpr size_t cost_smem() {
-  return sizeof(float) * (KB * WSTR + KB * TN) + sizeof(double) * NT;
+// [STAGES] slabs of W (A) and H (B).  After the products the stages hold
+// the block's V tile, [CM][CB_STR].
+constexpr size_t cost_smem() { return sizeof(float) * STAGES * (CA + CB); }
+static_assert(CM * CB_STR <= STAGES * (CA + CB), "the V tile must fit the ring");
+
+// Fixed-order butterfly sum over the warp; every lane gets the total.
+__device__ __forceinline__ double warp_sum(double x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The block's total of x over its threads, in a fixed order, in thread 0.
+__device__ __forceinline__ double block_total(double x, double* red) {
+  x = warp_sum(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  double s = red[0];
+#pragma unroll
+  for (int w = 1; w < CNT / 32; ++w) s += red[w];
+  return s;
+}
+
+// part1[b] (and part2[b] for IS) = this block's sums, b the block's index
+// in the grid.  vec: 16-byte copies of W and H; vecv: of V.
+template <bool IS>
+__global__ void __launch_bounds__(CNT, 2)
+cost_kernel(const float* __restrict__ V, const float* __restrict__ W,
+            const float* __restrict__ H, double* __restrict__ part1,
+            double* __restrict__ part2, int m, int n, int k, bool vec, bool vecv) {
+  extern __shared__ float4 smem4[];
+  float* S0 = reinterpret_cast<float*>(smem4);  // [STAGES] (A, B) slabs
+  __shared__ double red[2][CNT / 32];
+
+  const int i0 = blockIdx.y * CM, j0 = blockIdx.x * CN;
+  const int slabs = cdiv(k, CK), k8 = 8 * cdiv(k, 8);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int wr = CWM * (warp / (CN / CWN)), wc = CWN * (warp % (CN / CWN));
+  auto stage = [&](int s) { return S0 + (s % STAGES) * (CA + CB); };
+
+  // Slab s: W[i0.., 32 s..] and H[32 s.., j0..], zero outside the matrix
+  // (so k is padded with zeros to the slab).
+  auto issue = [&](int s) {
+    float* As = stage(s);
+    copy_tile<CNT>(As, CA_STR, W, k, i0, CK * s, CM, CK, m, k, vec);
+    copy_tile<CNT>(As + CA, CB_STR, H, n, CK * s, j0, CK, CN, k, n, vec);
+  };
+
+  // acc[i][j]: rows wr + 16 i + (g, g + 8) x columns wc + 8 j + (2t, 2t + 1).
+  float acc[CMI][CNJ][4];
+#pragma unroll
+  for (int i = 0; i < CMI; ++i)
+#pragma unroll
+    for (int j = 0; j < CNJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  issue(0);
+  cp_async_commit();
+  for (int s = 0; s < slabs; ++s) {
+    if (s + 1 < slabs) issue(s + 1);
+    cp_async_commit();   // possibly empty: keeps one group per slab
+    cp_async_wait<1>();  // all but the newest group done: slab s has landed
+    __syncthreads();
+    const float* As = stage(s);
+    const float* Bs = As + CA;
+    const int steps = min(CK, k8 - CK * s) / 8;
+#pragma unroll
+    for (int kk = 0; kk < CK / 8; ++kk) {
+      if (kk < steps) {
+        const int c = 8 * kk + t;
+        uint32_t ah[CMI][4], al[CMI][4], bh[CNJ][2], bl[CNJ][2];
+#pragma unroll
+        for (int i = 0; i < CMI; ++i) {
+          const int r = (wr + 16 * i + g) * CA_STR + c;
+          split(As[r], ah[i][0], al[i][0]);
+          split(As[r + 8 * CA_STR], ah[i][1], al[i][1]);
+          split(As[r + 4], ah[i][2], al[i][2]);
+          split(As[r + 8 * CA_STR + 4], ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < CNJ; ++j) {
+          const int q = c * CB_STR + wc + 8 * j + g;
+          split(Bs[q], bh[j][0], bl[j][0]);
+          split(Bs[q + 4 * CB_STR], bh[j][1], bl[j][1]);
+        }
+        // The small products first, then hi * hi; CMI * CNJ chains in flight.
+#pragma unroll
+        for (int i = 0; i < CMI; ++i)
+#pragma unroll
+          for (int j = 0; j < CNJ; ++j) mma(acc[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int i = 0; i < CMI; ++i)
+#pragma unroll
+          for (int j = 0; j < CNJ; ++j) mma(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int i = 0; i < CMI; ++i)
+#pragma unroll
+          for (int j = 0; j < CNJ; ++j) mma(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+      }
+    }
+    __syncthreads();  // stage s is refilled next
+  }
+
+  // Epilogue.  The V tile goes to the ring, now free, by cp.async (every
+  // copy in flight at once); then each thread forms its f32 terms in the
+  // accumulator layout, zero outside the matrix, sums each row's 2 CNJ in
+  // f32 and the rows in f64.
+  float* Vs = S0;  // [CM][CB_STR]
+  copy_tile<CNT>(Vs, CB_STR, V, n, i0, j0, CM, CN, m, n, vecv);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  double s1 = 0.0, s2 = 0.0;
+#pragma unroll
+  for (int i = 0; i < CMI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wr + 16 * i + g + 8 * h;
+      const bool in_r = i0 + r < m;
+      float f1 = 0.f, f2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < CNJ; ++j) {
+        const int c = wc + 8 * j + 2 * t;
+        const bool in0 = in_r && j0 + c < n, in1 = in_r && j0 + c + 1 < n;
+        const float2 v = *reinterpret_cast<const float2*>(&Vs[r * CB_STR + c]);
+        const float vh0 = acc[i][j][2 * h], vh1 = acc[i][j][2 * h + 1];
+        if (IS) {
+          f1 += (in0 ? logf(vh0) : 0.f) + (in1 ? logf(vh1) : 0.f);
+          f2 += (in0 ? v.x / vh0 : 0.f) + (in1 ? v.y / vh1 : 0.f);
+        } else {
+          f1 += (in0 ? v.x * logf(vh0) : 0.f) + (in1 ? v.y * logf(vh1) : 0.f);
+        }
+      }
+      s1 += (double)f1;
+      s2 += (double)f2;
+    }
+  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  s1 = block_total(s1, red[0]);
+  if (threadIdx.x == 0) part1[blk] = s1;
+  if (IS) {
+    s2 = block_total(s2, red[1]);
+    if (threadIdx.x == 0) part2[blk] = s2;
+  }
 }
 
 // Fixed-order tree sum of red[0..count) (count a power of two, every
@@ -496,52 +617,6 @@ __device__ __forceinline__ double block_sum(double* red, int count) {
   const double total = red[0];
   __syncthreads();
   return total;
-}
-
-template <bool IS>
-__global__ void __launch_bounds__(NT)
-cost_tile_kernel(const float* __restrict__ V, const float* __restrict__ W,
-                 const float* __restrict__ H, double* __restrict__ part1,
-                 double* __restrict__ part2, int m, int n, int k) {
-  extern __shared__ float4 smem4[];
-  float* Ws = reinterpret_cast<float*>(smem4);
-  float* Hs = Ws + KB * WSTR;
-  double* red = reinterpret_cast<double*>(Hs + KB * TN);
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int j0 = blockIdx.x * TN, i0 = blockIdx.y * TM;
-  float acc[4][TN / 16];
-  vhat_tile(W, H, m, n, k, i0, j0, Ws, Hs, acc);
-
-  double s1 = 0.0, s2 = 0.0;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int gi = i0 + ty * 4 + a;
-#pragma unroll
-    for (int b = 0; b < TN / 16; ++b) {
-      const int gj = j0 + tx + 16 * b;
-      if (gi < m && gj < n) {
-        const float v = V[(size_t)gi * n + gj], vh = acc[a][b];
-        if (IS) {
-          s1 += (double)logf(vh);
-          s2 += (double)(v / vh);
-        } else {
-          s1 += (double)(v * logf(vh));
-        }
-      }
-    }
-  }
-  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  red[tid] = s1;
-  __syncthreads();
-  s1 = block_sum(red, NT);
-  if (tid == 0) part1[blk] = s1;
-  if (IS) {
-    red[tid] = s2;
-    __syncthreads();
-    s2 = block_sum(red, NT);
-    if (tid == 0) part2[blk] = s2;
-  }
 }
 
 // out[0] = (float) sum(part[0..count)), in a fixed order.
@@ -634,9 +709,9 @@ cudaError_t launch_phase(const float* V, const float* W, const float* H,
   const size_t count = (size_t)(TRANS ? n : m) * k;
   float* part2 = is ? part + (size_t)p.grid.z * count : nullptr;
   p.kernel<<<p.grid, PNT, p.smem, s>>>(V, W, H, part, part2, m, n, k, p.span, vec);
-  const int blocks = (int)((count + NT - 1) / NT < 65535 ? (count + NT - 1) / NT : 65535);
-  sum_spans_kernel<<<blocks, NT, 0, s>>>(part, p.grid.z, count, out1);
-  if (is) sum_spans_kernel<<<blocks, NT, 0, s>>>(part2, p.grid.z, count, out2);
+  const int blocks = (int)((count + SUM_NT - 1) / SUM_NT < 65535 ? (count + SUM_NT - 1) / SUM_NT : 65535);
+  sum_spans_kernel<<<blocks, SUM_NT, 0, s>>>(part, p.grid.z, count, out1);
+  if (is) sum_spans_kernel<<<blocks, SUM_NT, 0, s>>>(part2, p.grid.z, count, out2);
   return cudaGetLastError();
 }
 
@@ -675,9 +750,10 @@ int nmf_wt_dot_phi(const float* V, const float* W, const float* H,
                                  static_cast<cudaStream_t>(stream));
 }
 
-// Number of per-block partial sums cost_terms needs (per output).
+// Number of per-block partial sums cost_terms needs (per output): one per
+// CM x CN tile of V.
 long long nmf_cost_partials(int m, int n) {
-  return (long long)cdiv(n, TN) * cdiv(m, TM);
+  return (long long)cdiv(n, CN) * cdiv(m, CM);
 }
 
 // out[0] = s1 and, for is, out[1] = s2.  part: 2 * nmf_cost_partials(m, n)
@@ -685,14 +761,19 @@ long long nmf_cost_partials(int m, int n) {
 int nmf_cost_terms(const float* V, const float* W, const float* H,
                    double* part, float* out, int m, int n, int k, int mode,
                    void* stream) {
-  const dim3 grid(cdiv(n, TN), cdiv(m, TM));
+  const dim3 grid(cdiv(n, CN), cdiv(m, CM));
   const size_t count = (size_t)grid.x * grid.y;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 1)
-    cost_tile_kernel<true><<<grid, NT, cost_smem(), s>>>(V, W, H, part, part + count, m, n, k);
-  else
-    cost_tile_kernel<false><<<grid, NT, cost_smem(), s>>>(V, W, H, part, nullptr, m, n, k);
-  cudaError_t err = cudaGetLastError();
+  const uintptr_t a = reinterpret_cast<uintptr_t>(V), b = reinterpret_cast<uintptr_t>(W),
+                  c = reinterpret_cast<uintptr_t>(H);
+  const bool vec = n % 4 == 0 && k % 4 == 0 && (b | c) % 16 == 0;
+  const bool vecv = n % 4 == 0 && a % 16 == 0;
+  const auto kernel = mode == 1 ? cost_kernel<true> : cost_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)cost_smem());
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, CNT, cost_smem(), s>>>(V, W, H, part, part + count, m, n, k, vec, vecv);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   reduce_partials_kernel<<<1, RED_NT, 0, s>>>(part, count, out);
   if (mode == 1) reduce_partials_kernel<<<1, RED_NT, 0, s>>>(part + count, count, out + 1);

@@ -10,21 +10,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core import torch_dtype
+from .core import resolve_device, torch_dtype
 
 
-def factors_from_numpy(obj, *, device="cpu", dtype=None):
+def factors_from_numpy(obj, *, device=None, dtype=None):
     """(W, H) tensors from a JAX ``Result`` or a mapping with "W" and "H".
 
     Each factor is a NumPy array or a per-source list of them, as the JAX
-    package returns; lists stay lists.  Tensors land on ``device`` in
-    ``dtype`` (default: the arrays' own dtype), ready to pass as
-    ``W_init=``/``H_init=``.
+    package returns; lists stay lists.  Tensors land on ``device``
+    (default: the CUDA card; with no card this raises, so pass
+    ``device="cpu"``) in ``dtype`` (default: the arrays' own dtype), ready
+    to pass as ``W_init=``/``H_init=``.
     """
     get = obj.get if isinstance(obj, dict) else (lambda f: getattr(obj, f, None))
     W, H = get("W"), get("H")
     if W is None or H is None:
         raise ValueError("need both W and H factors")
+    device = resolve_device(None, device)
     dt = None if dtype is None else torch_dtype(dtype)
 
     def convert(x):
@@ -35,13 +37,14 @@ def factors_from_numpy(obj, *, device="cpu", dtype=None):
     return convert(W), convert(H)
 
 
-def resume_state_from_numpy(rs, *, device="cpu", dtype=None) -> dict:
+def resume_state_from_numpy(rs, *, device=None, dtype=None) -> dict:
     """The port's ``resume_state`` from a JAX ``Result.resume_state``.
 
     JAX's extrapolated ``nmf_hals`` returns the momentum state as NumPy
     arrays ``Wy``, ``Hy`` and floats ``beta``, ``beta_bar``,
-    ``prev_err``.  The arrays become tensors on ``device`` in ``dtype``
-    (default: their own dtype) and the scalars stay floats, ready to pass
+    ``prev_err``.  The arrays become tensors on ``device`` (default: the
+    card, as in :func:`factors_from_numpy`) in ``dtype`` (default: their
+    own dtype) and the scalars stay floats, ready to pass
     as ``nmf_hals(..., extrapolate=True, resume_state=...)`` together
     with the Result's W and H as ``W_init``/``H_init``.
     """

@@ -151,7 +151,8 @@ def nmf_hals(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     drive the clamped Gram cost to exactly 0, where a strict rule could
     never fire.
 
-    ``device``: where a NumPy ``V`` goes (default ``"cpu"``); a tensor
+    ``device``: where a NumPy ``V`` goes (default: the CUDA card; with no
+    card the call raises, so pass ``"cpu"`` to run on the CPU); a tensor
     ``V`` runs on its own device.  ``mesh`` is not ported yet and raises
     ``NotImplementedError``.  With ``extrapolate=True``,
     ``Result.resume_state`` holds ``Wy``/``Hy`` (tensors on the run's

@@ -226,7 +226,8 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
     factors, single source, not with ``W_init``/``H_init``) and
     ``data_dtype`` (e.g. 'bfloat16': V's storage dtype on the Gram path).
 
-    ``device``: where a NumPy ``V`` goes (default ``"cpu"``); a tensor
+    ``device``: where a NumPy ``V`` goes (default: the CUDA card; with no
+    card the call raises, so pass ``"cpu"`` to run on the CPU); a tensor
     ``V`` runs on its own device.  ``callback`` and ``mesh`` are not
     ported yet and raise ``NotImplementedError``.
 

@@ -178,14 +178,28 @@ def wt_dot_phi(V, W, H, mode: str = "kl"):
 # Cost terms
 #
 # Replaces: nmf_toolbox_tpu/ops/pallas/fused.py cost_terms (_cost_kernel),
-#   called on check iterations by the fused objective (models/nmf.py:231,235).
-# Bound on the H100: arithmetic (2mnk FLOPs for V_hat against one read of
-#   V), plus one log per entry.
-# Design: the Pallas kernel sums into one SMEM scalar across its
-#   sequential grid.  Here every 64x64 tile's block writes its f64 sum to a
-#   partial buffer, and a one-block kernel adds the partials in a fixed
-#   order, so repeated runs give identical bits; no atomics.  Terms are
-#   formed in f32 as the Pallas kernel forms them; the sums run in f64.
+#   called on check iterations by the fused objective (models/nmf.py:231,235),
+#   so once per iteration at the default cost_every=1.
+# Bound on the H100: compute and memory tie.  V_hat takes 2mnk FLOPs,
+#   which f32-accurate tensor-core work (3xTF32: 495 / 3 = 165 TFLOP/s)
+#   does in 0.49 ms at 40 000x10 000 k=100, and the one read of V (1.6 GB
+#   at 3.35 TB/s) takes 0.48 ms.  The 4e8 accurate logs are left out of
+#   the bound; where they do not run under the products they cost ~0.8 ms
+#   (PERF.md §6).
+# Design: one GEMM tile per block with a reducing epilogue, no (m, k)
+#   accumulator and so no FlashAttention chain.  A block of 8 warps builds
+#   a 128x128 tile of V_hat on TF32 tensor cores (mma.sync m16n8k8) in
+#   3xTF32, as the phase kernels do; each warp holds 64x32 outputs, so
+#   every k-step issues 16 independent mma chains, and two blocks share an
+#   SM.  k streams in slabs of 32 through a two-stage cp.async ring (padded
+#   with zeros to the slab); each warp splits the operands it reads into hi
+#   and lo as they leave shared memory.  The V tile then comes into the
+#   ring by cp.async; the epilogue forms the f32 terms in registers with
+#   the accurate logf, masks the ragged edges and sums in a fixed order:
+#   f32 per row of a thread, f64 over its rows, the warp by a fixed
+#   butterfly and the block in warp order, one partial per block.  A
+#   one-block kernel adds the partials in a fixed order, so repeated runs
+#   give identical bits; no atomics.
 # ---------------------------------------------------------------------------
 
 def cost_terms_reference(V, W, H, mode: str = "kl"):

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import resolve_device, torch_dtype
+
 
 def seedable(V):
     """Zero-fill NaN before seeding: NaN may legitimately sit at
@@ -79,7 +81,7 @@ def _randomized_svd(generator, V, k: int, oversample: int = 10,
 
 
 def nndsvd(V, k: int, *, generator=None, variant: str = "nndsvdar",
-           dtype=None, oversample: int = 10, power_iters: int = 2):
+           dtype=None, device=None, oversample: int = 10, power_iters: int = 2):
     """Nonnegative Double SVD initialization: (W0, H0) for V ~ W @ H.
 
     variants (zeros are absorbing states for multiplicative updates):
@@ -87,15 +89,17 @@ def nndsvd(V, k: int, *, generator=None, variant: str = "nndsvdar",
       'nndsvda'   zeros replaced with mean(V)
       'nndsvdar'  zeros replaced with uniform(0, mean(V)/100)  [default]
 
-    ``V`` is a tensor (its device is the run's) or an array (CPU);
-    ``generator`` a ``torch.Generator`` (default: CPU, seed 0).
+    ``V`` is a tensor (its device is the run's) or an array, which goes
+    to ``device`` (default: the CUDA card; with no card this raises, so
+    pass ``device="cpu"`` to seed on the CPU); ``generator`` a
+    ``torch.Generator`` (default: CPU, seed 0).
     """
     if variant not in ("nndsvd", "nndsvda", "nndsvdar"):
         raise ValueError(f"unknown NNDSVD variant {variant!r}")
+    device = resolve_device(V, device)
     if not torch.is_tensor(V):
-        V = torch.as_tensor(np.asarray(V))
+        V = torch.as_tensor(np.asarray(V), device=device)
     if dtype is not None:
-        from ..core import torch_dtype
         V = V.to(torch_dtype(dtype))
     if k > min(V.shape):
         # the randomized sketch is capped at min(m, n) columns; silently

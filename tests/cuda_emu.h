@@ -3,8 +3,9 @@
 // (tests/test_torch_fused_emulated.py).  Each block runs in turn; its
 // threads are std::threads, __syncthreads is a block-wide barrier, and a
 // warp's mma.sync gathers the 32 lanes' fragments through a warp barrier
-// and gives each lane its part of the 16x8 product.  cp.async copies at
-// once.  The test replaces fused.cu's asm helpers with the ones below.
+// and gives each lane its part of the 16x8 product, as __shfl_xor_sync
+// exchanges the lanes' values.  cp.async copies at once.  The test
+// replaces fused.cu's asm helpers with the ones below.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -72,6 +73,7 @@ template <int N> inline void cp_async_wait() {}
 struct EmuWarp {
   std::barrier<>* bar;
   uint32_t a[32][4], b[32][2];
+  double x[32];
 };
 inline EmuWarp* emu_warps;
 
@@ -94,6 +96,17 @@ inline void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1)
     d[e] = (float)(d[e] + s);
   }
   w.bar->arrive_and_wait();
+}
+
+// The value of lane (this lane ^ mask), all 32 lanes taking part.
+inline double __shfl_xor_sync(unsigned, double v, int mask) {
+  const int lane = threadIdx.x % 32;
+  EmuWarp& w = emu_warps[threadIdx.x / 32];
+  w.x[lane] = v;
+  w.bar->arrive_and_wait();
+  const double r = w.x[lane ^ mask];
+  w.bar->arrive_and_wait();
+  return r;
 }
 
 template <class K, class... Args>

@@ -125,15 +125,28 @@ def test_emulated_phase_plan_splits_the_loop_into_spans(lib):
     assert lib.nmf_phase_scratch(0, 64, 32, 8, 0) == 0
 
 
+# (m, n, k) for cost_terms' 128 x 128 tiles and 32-deep k slabs: k = 1
+# with 4-byte copies, m and n below one tile, k = 21 with ragged m and odd
+# n (4-byte copies of V), one slab and a part, several slabs, and a 3 x 2
+# grid with a ragged last row of tiles.
+COST_SHAPES = [(140, 150, 1), (64, 96, 8), (130, 101, 21), (200, 140, 40),
+               (129, 131, 136), (300, 200, 12)]
+
+
 @pytest.mark.parametrize("mode", ["kl", "is"])
-def test_emulated_cost_terms_matches_plain_version(lib, mode):
-    V, W, H = make(130, 101, 21, seed=4)
-    m, n = V.shape
-    part = np.empty(2 * lib.nmf_cost_partials(m, n), np.float64)
+@pytest.mark.parametrize("m,n,k", COST_SHAPES)
+def test_emulated_cost_terms_matches_plain_version(lib, mode, m, n, k):
+    V, W, H = make(m, n, k, seed=4 + m + k)
+    tiles = -(-m // 128) * -(-n // 128)
+    assert lib.nmf_cost_partials(m, n) == tiles  # one partial per tile's block
+    part = np.full(2 * tiles, np.nan)
     out = np.empty(2, np.float32)
     assert lib.nmf_cost_terms(ptr(V), ptr(W), ptr(H), ptr(part), ptr(out), m, n,
-                              W.shape[1], fk.MODES.index(mode), None) == 0
+                              k, fk.MODES.index(mode), None) == 0
     want = fk.cost_terms_reference(*(torch.from_numpy(x).double() for x in (V, W, H)), mode)
     want = want if isinstance(want, tuple) else (want,)
-    for g, w in zip(out, want):
-        assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
+    for i, (g, w) in enumerate(zip(out, want)):
+        partials = part[i * tiles:(i + 1) * tiles]
+        assert np.all(np.isfinite(partials))  # every tile's block wrote its sum
+        assert abs(partials.sum() - float(g)) <= 1e-6 * abs(float(g))
+        assert abs(float(g) - float(w)) <= REL_TOL * abs(float(w))

@@ -19,6 +19,7 @@ import nmf_toolbox_tpu_torch as tt  # noqa: E402
 from nmf_toolbox_tpu_torch.interop import resume_state_from_numpy  # noqa: E402
 
 RTOL = 1e-9  # f64, same sweeps, different matmul order; relative to scale
+CPU = {"device": "cpu"}  # the port runs arrays on the card unless told
 
 
 def _problem(seed=0, m=30, n=40, k=5):
@@ -54,7 +55,7 @@ def test_parity_f64(extra):
                  .astype(np.float64)}
     kw = dict(W_init=W0, H_init=H0, maxiter=25, tolerance=1e-12)
     kw.update(extra)
-    t, j = tt.nmf_hals(V, 5, **kw), jt.nmf_hals(V, 5, **kw)
+    t, j = tt.nmf_hals(V, 5, **kw, **CPU), jt.nmf_hals(V, 5, **kw)
     assert_parity(t, j)
     assert t.W.dtype == torch.float64 and t.W.device.type == "cpu"
     if "tolerance" in extra:
@@ -73,7 +74,7 @@ def test_weighted_nan_at_zero_weight():
     M = (np.random.default_rng(3).uniform(size=V.shape) < 0.7).astype(np.float64)
     V_nan = np.where(M > 0, V, np.nan)
     kw = dict(W_init=W0, H_init=H0, weights=M, maxiter=20, tolerance=1e-30)
-    t = tt.nmf_hals(V_nan, 5, **kw)
+    t = tt.nmf_hals(V_nan, 5, **kw, **CPU)
     assert_parity(t, jt.nmf_hals(V_nan, 5, **kw))
     c = t.cost
     assert np.all(np.isfinite(c))
@@ -89,7 +90,7 @@ def test_stops_at_exact_fit():
     H = rng.gamma(1.0, 1.0, (3, 50))
     V = (W @ H).astype(np.float32)
     r = tt.nmf_hals(V, 3, W_init=W.astype(np.float32),
-                    H_init=H.astype(np.float32), maxiter=500, tolerance=1e-12)
+                    H_init=H.astype(np.float32), maxiter=500, tolerance=1e-12, **CPU)
     assert r.converged and len(r.cost) < 500
 
 
@@ -98,13 +99,13 @@ def test_extrapolated_chunked_resume_bit_exact():
     7 iterations give the bits of one 30-iteration run."""
     V, _, _ = _problem(11, m=50, n=40, k=4)
     kw = dict(extrapolate=True, tolerance=1e-30, seed=3)
-    whole = tt.nmf_hals(V, 4, maxiter=30, **kw)
+    whole = tt.nmf_hals(V, 4, maxiter=30, **kw, **CPU)
     res, costs, done = None, [], 0
     while done < 30:
         step = min(7, 30 - done)
         more = {} if res is None else dict(W_init=res.W, H_init=res.H,
                                            resume_state=res.resume_state)
-        res = tt.nmf_hals(V, 4, maxiter=step, **kw, **more)
+        res = tt.nmf_hals(V, 4, maxiter=step, **kw, **more, **CPU)
         costs.append(res.cost)
         done += step
     assert torch.equal(res.W, whole.W) and torch.equal(res.H, whole.H)
@@ -119,10 +120,10 @@ def test_port_resumes_jax_state():
     V, W0, H0 = _problem(12)
     kw = dict(extrapolate=True, tolerance=1e-30)
     first = jt.nmf_hals(V, 5, W_init=W0, H_init=H0, maxiter=10, **kw)
-    rs = resume_state_from_numpy(first.resume_state)
+    rs = resume_state_from_numpy(first.resume_state, **CPU)
     assert rs["Wy"].dtype == torch.float64 and isinstance(rs["beta"], float)
     t = tt.nmf_hals(V, 5, W_init=first.W, H_init=first.H, resume_state=rs,
-                    maxiter=10, **kw)
+                    maxiter=10, **kw, **CPU)
     whole = jt.nmf_hals(V, 5, W_init=W0, H_init=H0, maxiter=20, **kw)
     close(t.W, whole.W)
     close(t.H, whole.H)
@@ -132,13 +133,13 @@ def test_port_resumes_jax_state():
 def test_resume_state_from_numpy():
     rs = {"Wy": np.ones((3, 2)), "Hy": np.full((2, 4), 2.0), "beta": np.float32(0.5),
           "beta_bar": 1.0, "prev_err": 3.0}
-    out = resume_state_from_numpy(rs, dtype=np.float32)
+    out = resume_state_from_numpy(rs, dtype=np.float32, **CPU)
     assert out["Wy"].dtype == torch.float32 and out["Hy"].shape == (2, 4)
     assert out["beta"] == 0.5 and type(out["beta"]) is float
     rs["Wy"][0, 0] = 7.0  # a copy, not a view
     assert float(out["Wy"][0, 0]) == 1.0
     with pytest.raises(ValueError, match="prev_err"):
-        resume_state_from_numpy({k: v for k, v in rs.items() if k != "prev_err"})
+        resume_state_from_numpy({k: v for k, v in rs.items() if k != "prev_err"}, **CPU)
 
 
 @pytest.mark.parametrize("extra", [{}, {"extrapolate": True}, {"weights": 1}],
@@ -149,14 +150,13 @@ def test_inits_are_not_written(extra, k):
     if "weights" in extra:
         extra = {"weights": np.ones_like(V)}
     W, H = torch.from_numpy(W0.copy()), torch.from_numpy(H0.copy())
-    tt.nmf_hals(V, k, W_init=W, H_init=H, maxiter=3, **extra)
+    tt.nmf_hals(V, k, W_init=W, H_init=H, maxiter=3, **extra, **CPU)
     assert np.array_equal(W.numpy(), W0) and np.array_equal(H.numpy(), H0)
 
 
 def test_default_init_and_f32():
     V, _, _ = _problem(14)
-    a = tt.nmf_hals(V.astype(np.float32), 4, maxiter=20, seed=5)
-    b = tt.nmf_hals(V.astype(np.float32), 4, maxiter=20, seed=5)
+    a, b = (tt.nmf_hals(V.astype(np.float32), 4, maxiter=20, seed=5, **CPU) for _ in range(2))
     assert a.W.dtype == torch.float32 and torch.equal(a.W, b.W)
     W, H, cost = a  # unpacks like the MATLAB-style call
     assert W.shape == (30, 4) and H.shape == (4, 40)
@@ -181,10 +181,10 @@ def test_guards_raise_value_error(cfg):
     with pytest.raises(ValueError):
         jt.nmf_hals(V, 3, maxiter=2, **cfg)
     with pytest.raises(ValueError):
-        tt.nmf_hals(V, 3, maxiter=2, **cfg)
+        tt.nmf_hals(V, 3, maxiter=2, **cfg, **CPU)
 
 
 def test_mesh_not_ported():
     V = np.random.default_rng(8).uniform(0.1, 1, (20, 20))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        tt.nmf_hals(V, 3, maxiter=2, mesh=object())
+        tt.nmf_hals(V, 3, maxiter=2, mesh=object(), **CPU)

@@ -28,6 +28,7 @@ ATOL = 1e-12   # f64 NNDSVD of an exactly low-rank V
 SOLVER_RTOL = 1e-9  # f64 solver runs seeded from it
 BF16_RTOL = 1e-4    # both packages accumulate the same bf16 products in
                     # f32, in different orders (about 1e-5 is measured)
+CPU = {"device": "cpu"}  # the port runs arrays on the card unless told
 
 
 def rank8(m=60, n=40, seed=0):
@@ -68,7 +69,7 @@ def test_nndsvdar_matches_jax_on_positive_entries():
     V = rank8(seed=2)
     Ws, Hs = (np.asarray(x) for x in ji.nndsvd(V, 6, variant="nndsvd"))
     Wj, Hj = ji.nndsvd(V, 6, key=jax.random.PRNGKey(4), variant="nndsvdar")
-    Wt, Ht = ti.nndsvd(V, 6)  # an array, the default variant and generator
+    Wt, Ht = ti.nndsvd(V, 6, **CPU)  # an array, the default variant and generator
     for got, want, pos in ((Wt, Wj, Ws > 0), (Ht, Hj, Hs > 0)):
         got = np_(got)
         np.testing.assert_allclose(got[pos], np.asarray(want)[pos], atol=ATOL, rtol=0)
@@ -79,9 +80,9 @@ def test_nndsvdar_matches_jax_on_positive_entries():
 def test_nndsvd_errors():
     V = rank8()
     with pytest.raises(ValueError, match="k <= min"):
-        ti.nndsvd(V, 41)
+        ti.nndsvd(V, 41, **CPU)
     with pytest.raises(ValueError, match="variant"):
-        ti.nndsvd(V, 3, variant="bogus")
+        ti.nndsvd(V, 3, variant="bogus", **CPU)
 
 
 def test_seedable_and_working_eps():
@@ -99,7 +100,7 @@ def test_seedable_and_working_eps():
 def test_seeded_solvers_match_jax(solver):
     V = rank8(seed=5)
     kw = dict(init="nndsvda", maxiter=10, tolerance=1e-30)
-    t, j = getattr(tt, solver)(V, 6, **kw), getattr(jt, solver)(V, 6, **kw)
+    t, j = getattr(tt, solver)(V, 6, **kw, **CPU), getattr(jt, solver)(V, 6, **kw)
     for a, b in ((t.W, j.W), (t.H, j.H)):
         np.testing.assert_allclose(np_(a), b, rtol=0,
                                    atol=SOLVER_RTOL * np.max(np.abs(b)))
@@ -112,10 +113,10 @@ def test_nmf_nndsvd_preserves_product_through_renorm():
     H; one update then improves on the raw seed."""
     rng = np.random.default_rng(0)
     V = (rng.gamma(2.0, 1.0, (40, 4)) @ rng.gamma(0.5, 1.0, (4, 25))).astype(np.float32)
-    r = tt.nmf(V, 4, init="nndsvda", maxiter=1, tolerance=1e-30)
+    r = tt.nmf(V, 4, init="nndsvda", maxiter=1, tolerance=1e-30, **CPU)
     rel = np.linalg.norm(V - np_(r.W) @ np_(r.H)) / np.linalg.norm(V)
     # the wrapper's generator: CPU, seed 0
-    Wn, Hn = ti.nndsvd(V, 4, variant="nndsvda")
+    Wn, Hn = ti.nndsvd(V, 4, variant="nndsvda", **CPU)
     rel_seed = np.linalg.norm(V - np_(Wn) @ np_(Hn)) / np.linalg.norm(V)
     assert rel < rel_seed
     np.testing.assert_allclose(np.linalg.norm(np_(r.W), axis=0), 1.0, rtol=1e-5)
@@ -126,7 +127,7 @@ def test_nmf_weighted_nndsvd_seed_with_nan():
     V = rng.uniform(0.1, 1.0, (40, 30))
     M = (rng.uniform(size=(40, 30)) < 0.7).astype(np.float64)
     r = tt.nmf(np.where(M > 0, V, np.nan), 4, weights=M, init="nndsvdar",
-               maxiter=8, seed=3)
+               maxiter=8, seed=3, **CPU)
     assert np.all(np.isfinite(r.cost))
     assert bool(torch.isfinite(r.W).all()) and bool(torch.isfinite(r.H).all())
 
@@ -138,7 +139,7 @@ def test_nmf_bfloat16_data_matches_jax():
     W0 = rng.uniform(size=(m, k)).astype(np.float32)
     H0 = rng.uniform(size=(k, n)).astype(np.float32)
     kw = dict(W_init=W0, H_init=H0, maxiter=20, tolerance=1e-30)
-    t = tt.nmf(V, k, data_dtype="bfloat16", **kw)
+    t = tt.nmf(V, k, data_dtype="bfloat16", **kw, **CPU)
     j = jt.nmf(V, k, data_dtype="bfloat16", **kw)
     assert t.W.dtype == torch.float32  # the factors keep the compute dtype
     np.testing.assert_allclose(t.cost, j.cost, rtol=BF16_RTOL)
@@ -146,7 +147,7 @@ def test_nmf_bfloat16_data_matches_jax():
         np.testing.assert_allclose(np_(a), b, rtol=0,
                                    atol=BF16_RTOL * np.max(np.abs(b)))
     # bf16 storage moves the trajectory away from the f32 one, slightly
-    f = tt.nmf(V, k, **kw)
+    f = tt.nmf(V, k, **kw, **CPU)
     assert not np.array_equal(t.cost, f.cost)
     np.testing.assert_allclose(t.cost, f.cost, rtol=1e-2)
 
@@ -162,11 +163,12 @@ def test_nmf_option_guards(cfg):
     V = np.random.default_rng(9).uniform(0.1, 1, (20, 20))
     for pkg in (jt, tt):
         with pytest.raises(ValueError):
-            pkg.nmf(V, 3, maxiter=2, **cfg)
+            pkg.nmf(V, 3, maxiter=2, **cfg, **(CPU if pkg is tt else {}))
 
 
 def test_nmf_nndsvd_single_source_only():
     V = np.random.default_rng(10).uniform(0.1, 1, (20, 20))
     for pkg in (jt, tt):
         with pytest.raises(ValueError, match="single source"):
-            pkg.nmf(V, [2, 2], init="nndsvd", maxiter=2)
+            pkg.nmf(V, [2, 2], init="nndsvd", maxiter=2,
+                    **(CPU if pkg is tt else {}))

@@ -12,6 +12,7 @@ from nmf_toolbox_tpu.utils import save_factors  # noqa: E402
 from nmf_toolbox_tpu_torch.interop import factors_from_numpy, load_factors_npz  # noqa: E402
 
 ATOL = 1e-10  # f64: the same updates in both packages, different matmul order
+CPU = {"device": "cpu"}  # the port runs arrays on the card unless told
 
 
 def _problem(seed=0, m=25, n=35, k=4):
@@ -32,9 +33,9 @@ def test_resume_jax_checkpoint_in_port(tmp_path, div):
     save_factors(path, first)
     ckpt = load_factors_npz(path)
     assert ckpt["n_iters"] == 5 and set(ckpt) >= {"W", "H", "cost"}
-    W, H = factors_from_numpy(ckpt)
+    W, H = factors_from_numpy(ckpt, **CPU)
     assert W.dtype == torch.float64 and W.device.type == "cpu"
-    resumed = tt.nmf(V, 4, W_init=W, H_init=H, maxiter=5, **kw)
+    resumed = tt.nmf(V, 4, W_init=W, H_init=H, maxiter=5, **kw, **CPU)
     whole = jt.nmf(V, 4, W_init=W0, H_init=H0, maxiter=10, **kw)
     np.testing.assert_allclose(resumed.W.numpy(), whole.W, atol=ATOL, rtol=0)
     np.testing.assert_allclose(resumed.H.numpy(), whole.H, atol=ATOL, rtol=0)
@@ -46,7 +47,7 @@ def test_per_source_result_converts(tmp_path):
     V, W0, H0 = _problem(1, k=5)
     res = jt.nmf(V, [2, 3], W_init=[W0[:, :2], W0[:, 2:]],
                  H_init=[H0[:2], H0[2:]], divergence="kl", maxiter=4)
-    W, H = factors_from_numpy(res, dtype=np.float32)
+    W, H = factors_from_numpy(res, dtype=np.float32, **CPU)
     assert isinstance(W, list) and isinstance(H, list)
     assert [w.shape for w in W] == [(25, 2), (25, 3)]
     assert [h.shape for h in H] == [(2, 35), (3, 35)]
@@ -58,10 +59,10 @@ def test_per_source_result_converts(tmp_path):
     save_factors(path, res, extra={"note": np.arange(3)})
     ckpt = load_factors_npz(path)
     assert "extra__note" not in ckpt and "note" not in ckpt
-    W2, H2 = factors_from_numpy(ckpt)
+    W2, H2 = factors_from_numpy(ckpt, **CPU)
     for a, b in zip(W2 + H2, list(res.W) + list(res.H)):
         np.testing.assert_array_equal(a.numpy(), b)
-    r = tt.nmf(V, [2, 3], W_init=W2, H_init=H2, divergence="kl", maxiter=3)
+    r = tt.nmf(V, [2, 3], W_init=W2, H_init=H2, divergence="kl", maxiter=3, **CPU)
     assert isinstance(r.W, list) and len(r.W) == 2
 
 

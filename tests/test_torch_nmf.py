@@ -15,11 +15,15 @@ torch.set_num_threads(2)
 
 import nmf_toolbox_tpu as jt  # noqa: E402
 import nmf_toolbox_tpu_torch as tt  # noqa: E402
+from nmf_toolbox_tpu_torch.interop import (  # noqa: E402
+    factors_from_numpy, resume_state_from_numpy)
 from nmf_toolbox_tpu_torch.ops.kernels import fused as fk  # noqa: E402
+from nmf_toolbox_tpu_torch.utils.init import nndsvd  # noqa: E402
 
 GOLD = pathlib.Path(__file__).parent / "goldens"
 ATOL = 1e-10  # f64 factors, same updates, different matmul order
 RTOL = 1e-10  # f64 cost trace
+CPU = {"device": "cpu"}  # the port runs arrays on the card unless told
 
 
 def _problem(seed=0, m=30, n=40, k=5):
@@ -56,7 +60,8 @@ def assert_parity(t, j, atol=ATOL, rtol=RTOL):
 def test_golden_nmf_kl():
     g = np.load(GOLD / "nmf_kl.npz")
     r = tt.nmf(g["V"], g["W0"].shape[1], W_init=g["W0"], H_init=g["H0"],
-               divergence="kl", maxiter=20, tolerance=1e-12, dtype=np.float64)
+               divergence="kl", maxiter=20, tolerance=1e-12, dtype=np.float64,
+               **CPU)
     np.testing.assert_allclose(np_(r.W), g["W"], atol=1e-9)
     np.testing.assert_allclose(np_(r.H), g["H"], atol=1e-9)
     np.testing.assert_allclose(r.cost, g["cost"], rtol=1e-9)
@@ -66,7 +71,7 @@ def test_golden_nmf_weighted_kl():
     g = np.load(GOLD / "nmf_weighted_kl.npz")
     r = tt.nmf(g["V"], g["W0"].shape[1], W_init=g["W0"], H_init=g["H0"],
                weights=g["M"], divergence="kl", maxiter=15, tolerance=1e-12,
-               dtype=np.float64)
+               dtype=np.float64, **CPU)
     np.testing.assert_allclose(np_(r.W), g["W"], atol=1e-9)
     np.testing.assert_allclose(np_(r.H), g["H"], atol=1e-9)
     np.testing.assert_allclose(r.cost, g["cost"], rtol=1e-9)
@@ -87,7 +92,7 @@ def test_parity_f64(div, method, extra):
     V, W0, H0 = _problem()
     kw = dict(W_init=W0, H_init=H0, divergence=div, method=method,
               maxiter=25, tolerance=1e-12, **extra)
-    assert_parity(tt.nmf(V, 5, **kw), jt.nmf(V, 5, **kw))
+    assert_parity(tt.nmf(V, 5, **kw, **CPU), jt.nmf(V, 5, **kw))
 
 
 def test_parity_weighted_and_euclidean_naive():
@@ -96,7 +101,7 @@ def test_parity_weighted_and_euclidean_naive():
     for div in ("euclidean", "is"):
         kw = dict(W_init=W0, H_init=H0, divergence=div, weights=Mw,
                   maxiter=15, tolerance=1e-12)
-        assert_parity(tt.nmf(V, 5, **kw), jt.nmf(V, 5, **kw))
+        assert_parity(tt.nmf(V, 5, **kw, **CPU), jt.nmf(V, 5, **kw))
 
 
 def test_parity_multi_source_fixed_sparse():
@@ -104,7 +109,7 @@ def test_parity_multi_source_fixed_sparse():
     kw = dict(W_init=[W0[:, :3], W0[:, 3:]], H_init=[H0[:3], H0[3:]],
               W_fixed=[False, True], W_sparsity=[0.0, 0.2], H_sparsity=0.1,
               divergence="kl", maxiter=20, tolerance=1e-12)
-    t = tt.nmf(V, [3, 2], **kw)
+    t = tt.nmf(V, [3, 2], **kw, **CPU)
     assert_parity(t, jt.nmf(V, [3, 2], **kw))
     # The frozen source keeps its (unit-L2 normalized) init.
     w1 = W0[:, 3:] / np.sqrt((W0[:, 3:] ** 2).sum(0, keepdims=True))
@@ -114,7 +119,7 @@ def test_parity_multi_source_fixed_sparse():
 def test_parity_tolerance_fires_and_trims():
     V, W0, H0 = _problem(4)
     kw = dict(W_init=W0, H_init=H0, maxiter=500, tolerance=1e-3)
-    t, j = tt.nmf(V, 5, **kw), jt.nmf(V, 5, **kw)
+    t, j = tt.nmf(V, 5, **kw, **CPU), jt.nmf(V, 5, **kw)
     assert t.converged and t.n_iters < 500
     assert len(t.cost) == t.n_iters
     assert_parity(t, j)
@@ -128,8 +133,8 @@ def test_cost_every_leaves_factors_bit_identical(div, method, dtype):
     V, W0, H0 = _problem(5)
     kw = dict(W_init=W0, H_init=H0, divergence=div, method=method,
               maxiter=20, tolerance=0.0, dtype=dtype)
-    r1 = tt.nmf(V, 5, **kw)
-    r3 = tt.nmf(V, 5, cost_every=3, **kw)
+    r1 = tt.nmf(V, 5, **kw, **CPU)
+    r3 = tt.nmf(V, 5, cost_every=3, **kw, **CPU)
     assert torch.equal(r1.W, r3.W) and torch.equal(r1.H, r3.H)
     # computed at iterations 1, 3, 6, ..., 18 and the last; carried between
     for i in range(20):
@@ -143,7 +148,7 @@ def test_cost_every_matches_jax():
     V, W0, H0 = _problem(6)
     kw = dict(W_init=W0, H_init=H0, divergence="kl", maxiter=300,
               tolerance=2e-2, cost_every=4)
-    t = tt.nmf(V, 5, **kw)
+    t = tt.nmf(V, 5, **kw, **CPU)
     assert t.converged
     assert_parity(t, jt.nmf(V, 5, **kw))
 
@@ -162,7 +167,7 @@ def test_fused_f32(div):
     kw = dict(W_init=W0, H_init=H0, divergence=div, maxiter=8,
               tolerance=1e-30, dtype=np.float32)
     before = (fk.phi_dot_ht_launches, fk.wt_dot_phi_launches, fk.cost_terms_launches)
-    t = tt.nmf(V, k, method="fused", **kw)
+    t = tt.nmf(V, k, method="fused", **kw, **CPU)
     assert (fk.phi_dot_ht_launches, fk.wt_dot_phi_launches,
             fk.cost_terms_launches) == before  # CPU: plain versions only
     assert t.W.dtype == torch.float32
@@ -170,7 +175,7 @@ def test_fused_f32(div):
     j = jt.nmf(V, k, method="fused", **kw)
     np.testing.assert_allclose(t.cost, j.cost, rtol=1e-4)
     # Port fused vs port naive: tests/test_pallas.py's thresholds.
-    a = tt.nmf(V, k, method="naive", **kw)
+    a = tt.nmf(V, k, method="naive", **kw, **CPU)
     np.testing.assert_allclose(a.cost, t.cost, rtol=2e-3)
     np.testing.assert_allclose(np_(a.W), np_(t.W), atol=2e-3)
     np.testing.assert_allclose(np_(a.H), np_(t.H), atol=2e-2)
@@ -204,27 +209,28 @@ def test_guards_raise_value_error(cfg):
     with pytest.raises(ValueError):
         jt.nmf(V, 3, maxiter=2, **cfg)
     with pytest.raises(ValueError):
-        tt.nmf(V, 3, maxiter=2, **cfg)
+        tt.nmf(V, 3, maxiter=2, **cfg, **CPU)
 
 
 def test_fused_k_limit():
     V = np.random.default_rng(7).uniform(0.1, 1, (20, 20)).astype(np.float32)
     for pkg in (jt, tt):
         with pytest.raises(ValueError):
-            pkg.nmf(V, 1025, divergence="kl", method="fused", maxiter=1)
+            pkg.nmf(V, 1025, divergence="kl", method="fused", maxiter=1,
+                    **(CPU if pkg is tt else {}))
 
 
 @pytest.mark.parametrize("cfg", [dict(mesh=object()), dict(callback=print)])
 def test_not_ported_options_raise(cfg):
     V = np.random.default_rng(8).uniform(0.1, 1, (20, 20))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.nmf(V, 3, maxiter=2, **cfg)
+        tt.nmf(V, 3, maxiter=2, **cfg, **CPU)
 
 
 def test_unknown_method_raises():
     V = np.random.default_rng(9).uniform(0.1, 1, (20, 20))
     with pytest.raises(ValueError, match="unknown method"):
-        tt.nmf(V, 3, method="hals", maxiter=2)
+        tt.nmf(V, 3, method="hals", maxiter=2, **CPU)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +239,7 @@ def test_unknown_method_raises():
 
 def test_devices_dtypes_and_seeded_init():
     V, _, _ = _problem(10)
-    r = tt.nmf(V, 4, maxiter=5)
+    r = tt.nmf(V, 4, maxiter=5, **CPU)
     assert r.W.device.type == "cpu" and r.W.dtype == torch.float64
     W, H, cost = r  # unpacks like the MATLAB call
     assert W.shape == (30, 4) and H.shape == (4, 40) and cost.shape == (5,)
@@ -241,15 +247,35 @@ def test_devices_dtypes_and_seeded_init():
     assert r32.W.dtype == torch.float32
     with pytest.raises(ValueError):
         tt.nmf(torch.from_numpy(V), 4, maxiter=5, device="meta")
-    a, b = tt.nmf(V, 4, maxiter=5, seed=3), tt.nmf(V, 4, maxiter=5, seed=3)
-    c = tt.nmf(V, 4, maxiter=5, seed=4)
+    a, b = (tt.nmf(V, 4, maxiter=5, seed=3, **CPU) for _ in range(2))
+    c = tt.nmf(V, 4, maxiter=5, seed=4, **CPU)
     assert torch.equal(a.W, b.W) and not torch.equal(a.W, c.W)
     assert np.all(np.diff(a.cost) <= 0)  # Euclidean MU is monotone
 
 
+ENTRY_POINTS = {
+    "nmf": lambda V: tt.nmf(V, 3, maxiter=2),
+    "nmf_hals": lambda V: tt.nmf_hals(V, 3, maxiter=2),
+    "nndsvd": lambda V: nndsvd(V, 3),
+    "factors_from_numpy": lambda V: factors_from_numpy({"W": V, "H": V}),
+    "resume_state_from_numpy": lambda V: resume_state_from_numpy(
+        {"Wy": V, "Hy": V, "beta": 1.0, "beta_bar": 1.0, "prev_err": 1.0}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_arrays_default_to_the_card_and_raise_without_one(name, monkeypatch):
+    """An array with no device= goes to the card, so with no card the
+    entry point raises and names device="cpu", never falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    V = np.random.default_rng(12).uniform(0.1, 1, (20, 20))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name](V)
+
+
 def test_multi_source_default_init_returns_lists():
     V, _, _ = _problem(11)
-    r = tt.nmf(V, [2, 3], divergence="kl", maxiter=5)
+    r = tt.nmf(V, [2, 3], divergence="kl", maxiter=5, **CPU)
     assert isinstance(r.W, list) and [w.shape[1] for w in r.W] == [2, 3]
     assert isinstance(r.H, list) and [h.shape[0] for h in r.H] == [2, 3]
 
@@ -275,7 +301,7 @@ def test_objective_check_vs_f64_oracle():
         H = H * ((W.T @ V) / np.maximum(W.T @ Vh, eps))
     c_oracle = 0.5 * np.sum((V - W @ H) ** 2)
     r = tt.nmf(V.astype(np.float32), 25, W_init=W0.astype(np.float32),
-               H_init=H0.astype(np.float32), maxiter=200, tolerance=1e-30)
+               H_init=H0.astype(np.float32), maxiter=200, tolerance=1e-30, **CPU)
     Wf, Hf = np_(r.W).astype(np.float64), np_(r.H).astype(np.float64)
     rel = abs(0.5 * np.sum((V - Wf @ Hf) ** 2) - c_oracle) / c_oracle
     assert rel <= 1e-5

@@ -1,13 +1,17 @@
-"""The 3xTF32 arithmetic of the W- and H-phase kernels (csrc/fused.cu), on the CPU.
+"""The 3xTF32 arithmetic of the fused kernels (csrc/fused.cu), on the CPU.
 
-The kernels run both GEMMs of a tile on TF32 tensor cores: each f32
+The W- and H-phase kernels run both GEMMs of a tile, and the cost kernel
+its one GEMM, on TF32 tensor cores: each f32
 operand x is split into hi = tf32(x) and lo = tf32(x - hi), rounded to
 nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds, and a
-product is lo*hi + hi*lo + hi*hi with f32 accumulation.  This module
+product is lo*hi + hi*lo + hi*hi with f32 accumulation, which the tensor
+cores truncate toward zero at every mma.  This module
 emulates that arithmetic in plain PyTorch and holds it against f64, so the
 error budget of the design is checked where no card is needed.  Imports
 no JAX.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -20,6 +24,11 @@ from nmf_toolbox_tpu_torch.ops.kernels import fused as fk  # noqa: E402
 # that the kernels are held to against their f32 plain versions.
 REL_TOL = 2e-5
 TF32_MASK = -0x2000  # 0xFFFFE000 as an int32: sign, exponent, 10 mantissa bits
+# f64 bits that f32 lacks (29 of the 52 mantissa bits): clearing them
+# truncates a value in f32's normal range to f32, toward zero.
+F32_IN_F64_MASK = ~((1 << 29) - 1)
+# The cost kernels' gate against the f32 plain version on the card.
+COST_REL_TOL = 1e-4
 
 
 def tf32_rna(x):
@@ -117,6 +126,43 @@ def test_emulated_3xtf32_matches_f64(name, mode, m, n, k):
           "(max relative error against f64)")
     assert all(g.dtype == torch.float32 and g.shape == w.shape for g, w in zip(got3, want))
     assert err3 < REL_TOL
+
+
+@functools.cache
+def truncating_vhat(m, n, k, seed):
+    """V and W @ H as the cost kernel forms it: per k-step of 8, the
+    products lo*hi, then hi*lo, then hi*hi, each of 8 terms summed exactly
+    (f64) and added to the f32 accumulator, which is truncated toward zero
+    (one chain per output, 3 k / 8 truncating adds)."""
+    V, W, H = (torch.from_numpy(x) for x in make(m, n, k, seed))
+    (wh, wl), (hh, hl) = split(W), split(H)
+    wh, wl, hh, hl = (x.double() for x in (wh, wl, hh, hl))
+    acc, prod = torch.zeros((m, n), dtype=torch.float64), torch.empty((m, n), dtype=torch.float64)
+    for k0 in range(0, k, 8):
+        ks = slice(k0, k0 + 8)
+        for a, b in ((wl, hh), (wh, hl), (wh, hh)):
+            torch.matmul(a[:, ks], b[ks], out=prod)
+            acc.add_(prod)
+            acc.view(torch.int64).bitwise_and_(F32_IN_F64_MASK)
+    return V, W, H, acc.float()
+
+
+@pytest.mark.parametrize("mode", ["kl", "is"])
+@pytest.mark.parametrize("m,n,k", [(300, 700, 40), (2000, 3000, 1024)])
+def test_emulated_3xtf32_cost_terms_match_f64(mode, m, n, k):
+    """cost_terms' sums over the emulated V_hat, with f32 terms summed in
+    f64 as the kernel forms them, stay within the 1e-4 gate of f64."""
+    V, W, H, V_hat = truncating_vhat(m, n, k, seed=m + k)
+    if mode == "kl":
+        got = ((V * torch.log(V_hat)).double().sum(),)
+    else:
+        got = (torch.log(V_hat).double().sum(), (V / V_hat).double().sum())
+    want = fk.cost_terms_reference(V.double(), W.double(), H.double(), mode)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(abs(float(g) - float(w)) / abs(float(w)) for g, w in zip(got, want))
+    print(f"cost_terms {mode} {m}x{n} k={k}: 3xTF32 with truncating "
+          f"accumulation {err:.3g} (relative error against f64)")
+    assert err < COST_REL_TOL
 
 
 def test_h_phase_is_the_transposed_w_phase():
