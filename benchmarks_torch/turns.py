@@ -1,19 +1,16 @@
 #!/usr/bin/env python3
 """Time the PyTorch + CUDA port's fused kernels and fused nmf for one source tree.
 
-    python benchmarks_torch/turns.py [--root DIR] [--label NAME] [--profile]
+    python benchmarks_torch/turns.py [--root DIR]
 
-Imports ``nmf_toolbox_tpu_torch`` from DIR (default: this checkout),
-builds its kernels, checks ``cost_terms`` in both modes against its plain
-version at 300x700 k=40 and 2 000x3 000 k=1024 (max relative error
-<= 1e-4, two runs bit-identical), then at 40 000x10 000 k=100 f32
-(models/nmf.py:316-321's shape) times each fused kernel in both modes
-(mean of 10 launches by CUDA events, after a warm-up) and
+Imports ``nmf_toolbox_tpu_torch`` from DIR (default: this checkout) and
+builds its kernels.  At chip_smoke.py's main shape (40 000x10 000 k=100
+f32) it times each fused kernel in both modes (``chip_smoke.cuda_ms``:
+mean of 10 launches by CUDA events, after a warm-up) and
 ``nmf(method="fused")`` KL and IS (host clock around 10 synchronised
-iterations, after a 2-iteration warm-up).  ``--profile`` adds
-``torch.profiler``'s device time per kernel over a fused KL run of 10
-iterations, per iteration, and the device's idle share of that run;
-``--kernels-only`` leaves out the nmf runs.
+iterations, after a 2-iteration warm-up), then takes
+``chip_smoke.profile_device_ms`` over one more fused KL run.  Timing
+only: each tree's own chip_smoke.py checks its kernels.
 
 Prints one JSON line with the card's name and power limit.  Trees share
 the package name, so each tree runs in its own process; to compare two
@@ -26,87 +23,19 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-MAIN = (40_000, 10_000, 100)
-CHECK = ((300, 700, 40), (2_000, 3_000, 1024))
-REL_TOL = 1e-4
-REPS = 10
-ITERS = 10
-
-
-def as_tuple(x):
-    return x if isinstance(x, tuple) else (x,)
-
-
-def cuda_ms(torch, fn, reps=REPS):
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def uniform(torch, rng, shape):
-    return torch.from_numpy(rng.uniform(0.1, 1, shape).astype(np.float32)).cuda()
-
-
-def check_cost_terms(torch, fk):
-    """Max relative error of cost_terms against its plain version."""
-    worst, rng = 0.0, np.random.default_rng(1)
-    for m, n, k in CHECK:
-        V, W, H = (uniform(torch, rng, s) for s in ((m, n), (m, k), (k, n)))
-        for mode in ("kl", "is"):
-            got = as_tuple(fk.cost_terms(V, W, H, mode))
-            again = as_tuple(fk.cost_terms(V, W, H, mode))
-            want = as_tuple(fk.cost_terms_reference(V, W, H, mode))
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"cost_terms {mode} {m}x{n} k={k}: runs differ")
-            rel = max(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(got, want))
-            if not rel <= REL_TOL:
-                raise AssertionError(f"cost_terms {mode} {m}x{n} k={k}: rel {rel:.3g}")
-            worst = max(worst, rel)
-    return worst
-
-
-def profile_fused_kl(torch, run):
-    """Device ms per iteration by kernel name, and the idle share, over
-    one fused KL run of ITERS iterations."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us and getattr(evt, "device_type", None) is not None and \
-                str(evt.device_type).endswith("CUDA"):
-            by_kernel[evt.key[:80]] = us / 1e3 / ITERS
-    busy = sum(by_kernel.values()) * ITERS
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
-    return {"device_ms_per_iter": top, "busy_ms_per_iter": busy / ITERS,
-            "wall_ms_per_iter": wall / ITERS, "idle_share": 1 - busy / wall}
+HERE = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(HERE))
+import chip_smoke as cs  # noqa: E402  (this checkout's helpers, whatever --root)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
-    ap.add_argument("--label", default=None)
-    ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--kernels-only", action="store_true")
+    ap.add_argument("--root", default=str(HERE))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -118,45 +47,28 @@ def main():
     from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
     t0 = time.perf_counter()
     _build.load()
-    out = {"label": args.label or args.root, "build_s": time.perf_counter() - t0,
-           "card": subprocess.run(
-               ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-               capture_output=True, text=True, check=True, timeout=60).stdout.strip()}
-    try:  # a failed check still prints the times, then exits 1
-        out["cost_terms_max_rel_err"] = check_cost_terms(torch, fk)
-    except AssertionError as e:
-        out["check_failed"] = str(e)
+    out = {"root": args.root, "build_s": time.perf_counter() - t0, "card": cs.card()}
 
-    m, n, k = MAIN
+    m, n, k = cs.MAIN
     rng = np.random.default_rng(0)
-    V, W, H = (uniform(torch, rng, s) for s in ((m, n), (m, k), (k, n)))
-    for name in ("cost_terms", "phi_dot_ht", "wt_dot_phi"):
+    V, W, H = (torch.from_numpy(rng.uniform(0.1, 1, s).astype(np.float32)).cuda()
+               for s in ((m, n), (m, k), (k, n)))
+    for name, _ in cs.KERNELS:
         for mode in ("kl", "is"):
             fn = getattr(fk, name)
-            out[f"{name}_{mode}_ms"] = cuda_ms(torch, lambda: fn(V, W, H, mode))
+            out[f"{name}_{mode}_ms"] = cs.cuda_ms(torch, lambda: fn(V, W, H, mode), 10)
     del W, H
-    if args.kernels_only:
-        finish(out)
     W0 = rng.uniform(size=(m, k)).astype(np.float32)
     H0 = rng.uniform(size=(k, n)).astype(np.float32)
     kw = dict(W_init=W0, H_init=H0, tolerance=1e-30, method="fused", device="cuda")
     for d in ("kl", "is"):
         nmf(V, k, divergence=d, maxiter=2, **kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = nmf(V, k, divergence=d, maxiter=ITERS, **kw)
-        torch.cuda.synchronize()
-        out[f"fused_{d}_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / ITERS
+        res, ms = cs.wall_ms(torch, lambda: nmf(V, k, divergence=d, maxiter=cs.ITERS, **kw))
+        out[f"fused_{d}_ms_per_iter"] = ms / cs.ITERS
         out[f"fused_{d}_final_cost"] = float(np.asarray(res.cost)[-1])
-    if args.profile:
-        out["profile_fused_kl"] = profile_fused_kl(
-            torch, lambda: nmf(V, k, divergence="kl", maxiter=ITERS, **kw))
-    finish(out)
-
-
-def finish(out):
+    out["profile_fused_kl"] = cs.profile_device_ms(
+        torch, lambda: nmf(V, k, divergence="kl", maxiter=cs.ITERS, **kw), cs.ITERS)
     print(json.dumps(out), flush=True)
-    sys.exit(1 if "check_failed" in out else 0)
 
 
 if __name__ == "__main__":

@@ -29,10 +29,13 @@ without printing the last line:
    (kl_phi_dot_ht_dma, k <= 512) likewise at 300x700 k=40 and the
    W-phase comparison's three shapes, and a ValueError at k=1024;
 3. the main path, ``nmf(method="fused")`` at 40 000x10 000 rank 100 f32,
-   KL and IS, 10 iterations, with every kernel's launch counter set to 0
-   before and required above 0 after; costs finite, KL non-increasing,
-   and within rtol 2e-3 of ``method="naive"`` on the same inits
+   KL and IS, 10 iterations, with every kernel's launch counter
+   (kl_phi_dot_ht_dma's too) set to 0 before and read after, each fused
+   kernel's required above 0; costs finite, KL non-increasing, and
+   within rtol 2e-3 of ``method="naive"`` on the same inits
    (test_fused_solver_matches_naive's threshold); ms/iteration of both;
+   then torch.profiler's device time per kernel and the device's idle
+   share over one more fused KL run of 10 iterations;
 4. the default Euclidean ``gram`` path at 100 000x10 000 rank 200 f32,
    10 iterations (no kernel of its own: two cuBLAS GEMMs per iteration);
 5. bench.py's objective check: f32 port vs the f64 NumPy oracle at
@@ -57,10 +60,10 @@ Then a JSON line of per-kernel results and, last, the device line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
 three fused kernels, phase 6 (the only path that runs it) for
 kl_phi_dot_ht_dma, each counter set to 0 just before;
-``launches_per_iter`` is what one fused iteration launches (1 for each
-fused kernel at cost_every=1, 0 for kl_phi_dot_ht_dma, which no solver
-calls).  ``library_ms`` is null for all four: no single PyTorch call
-computes any of them.
+``launches_per_iter`` is each kernel's launches in phase 3's two fused
+runs over their iterations (kl_phi_dot_ht_dma's counted there too, where
+no solver calls it).  ``library_ms`` is null for all four: no single
+PyTorch call computes any of them.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -143,15 +146,43 @@ def wall_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def profile_device_ms(torch, run, iters):
+    """Device ms per iteration by kernel (the 12 largest), busy and wall ms
+    per iteration and the device's idle share, from torch.profiler over
+    one call of ``run``, which runs ``iters`` iterations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            by_kernel[evt.key[:80]] = us / 1e3 / iters
+    busy = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
+    return {"device_ms_per_iter": top, "busy_ms_per_iter": busy,
+            "wall_ms_per_iter": wall / iters, "idle_share": 1 - busy * iters / wall}
+
+
 def phase0_device(torch):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
         sys.exit(1)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    say(smi)
+    say(card())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(f"phase 0 device: {torch.cuda.get_device_name(0)}, "
@@ -321,7 +352,7 @@ def phase2_dma(torch, dk, main_V):
     return stats
 
 
-def phase3_main_path(torch, fk, nmf, V, W0, H0):
+def phase3_main_path(torch, fk, dk, nmf, V, W0, H0):
     k = MAIN[2]
     kw = dict(W_init=W0, H_init=H0, maxiter=ITERS, tolerance=1e-30, device="cuda")
     for d in ("kl", "is"):  # warm both paths (allocator, cuBLAS handles)
@@ -330,9 +361,11 @@ def phase3_main_path(torch, fk, nmf, V, W0, H0):
     out = {}
     for d in ("kl", "is"):
         fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
+        dk.kl_phi_dot_ht_dma_launches = 0
         fused, ms_fused = wall_ms(torch, lambda: nmf(V, k, divergence=d, method="fused", **kw))
         launches = {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
-        if not all(c > 0 for c in launches.values()):
+        launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
+        if not all(launches[name] > 0 for name, _ in KERNELS):
             raise AssertionError(f"fused {d} run missed a kernel: {launches}")
         naive, ms_naive = wall_ms(torch, lambda: nmf(V, k, divergence=d, method="naive", **kw))
         cf, cn = np.asarray(fused.cost), np.asarray(naive.cost)
@@ -346,11 +379,16 @@ def phase3_main_path(torch, fk, nmf, V, W0, H0):
             x = getattr(fused, name)
             if x.device.type != "cuda" or not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"fused {d} {name} not finite on the card")
-        out[d] = {"launches": launches, "ms_per_iter_fused": ms_fused / ITERS,
+        out[d] = {"launches": launches, "iters": fused.n_iters,
+                  "ms_per_iter_fused": ms_fused / ITERS,
                   "ms_per_iter_naive": ms_naive / ITERS}
         say(f"phase 3 nmf {d} {MAIN[0]}x{MAIN[1]} r{k}: fused "
             f"{ms_fused / ITERS:.2f} ms/iter, naive {ms_naive / ITERS:.2f} ms/iter, "
             f"launches {launches}, final cost fused {cf[-1]:.7g} naive {cn[-1]:.7g}")
+    # Where a fused KL iteration's device time goes (counters already read).
+    prof = profile_device_ms(
+        torch, lambda: nmf(V, k, divergence="kl", method="fused", **kw), ITERS)
+    say(f"phase 3 profile fused kl: {json.dumps(prof)}")
     return out
 
 
@@ -612,7 +650,7 @@ def main():
 
     stats = phase2_kernels(torch, fk, V)
     dma_stats = phase2_dma(torch, dk, V)
-    main_path = phase3_main_path(torch, fk, nmf, V, W0, H0)
+    main_path = phase3_main_path(torch, fk, dk, nmf, V, W0, H0)
     del V
     torch.cuda.empty_cache()
     phase4_gram(torch, nmf)
@@ -626,13 +664,18 @@ def main():
     phase8_nmf_options(torch, nmf, V)
     del V
 
+    def per_iter(name):
+        """Launches per fused iteration, counted in phase 3's runs."""
+        return (sum(r["launches"][name] for r in main_path.values())
+                / sum(r["iters"] for r in main_path.values()))
+
     kernels = []
     for name, replaces in KERNELS:
         s = stats[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": sum(main_path[d]["launches"][name] for d in ("kl", "is")),
-            "launches_per_iter": 1,
+            "launches_per_iter": per_iter(name),
             "max_abs_err": s["max_abs_err"], "max_rel_err": s["max_rel_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": None,
@@ -643,7 +686,7 @@ def main():
     name, replaces, source = DMA
     kernels.append({
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": dma_launches, "launches_per_iter": 0,
+        "launches": dma_launches, "launches_per_iter": per_iter(name),
         "max_abs_err": dma_stats["max_abs_err"],
         "max_rel_err": dma_stats["max_rel_err"], "ms": dma_stats["ms"],
         "plain_ms": dma_stats["plain_ms"], "bound_ms": dma_stats["bound_ms"],
