@@ -6,11 +6,13 @@
 Imports ``nmf_toolbox_tpu_torch`` from DIR (default: this checkout) and
 builds its kernels.  At chip_smoke.py's main shape (40 000x10 000 k=100
 f32) it times each fused kernel in both modes (``chip_smoke.cuda_ms``:
-mean of 10 launches by CUDA events, after a warm-up) and
-``nmf(method="fused")`` KL and IS (host clock around 10 synchronised
-iterations, after a 2-iteration warm-up), then takes
-``chip_smoke.profile_device_ms`` over one more fused KL run.  Timing
-only: each tree's own chip_smoke.py checks its kernels.
+mean of 10 launches by CUDA events, after a warm-up); at each of the
+W-phase comparison's shapes (``chip_smoke.COMPARE``, inputs as phase 6
+makes them) the plain composition, ``phi_dot_ht`` and
+``kl_phi_dot_ht_dma`` likewise; then ``nmf(method="fused")`` KL and IS
+(host clock around 10 synchronised iterations, after a 2-iteration
+warm-up), and ``chip_smoke.profile_device_ms`` over one more fused KL
+run.  Timing only: each tree's own chip_smoke.py checks its kernels.
 
 Prints one JSON line with the card's name and power limit.  Trees share
 the package name, so each tree runs in its own process; to compare two
@@ -45,6 +47,7 @@ def main():
     from nmf_toolbox_tpu_torch import nmf
     from nmf_toolbox_tpu_torch.ops.kernels import _build
     from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
+    from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
     t0 = time.perf_counter()
     _build.load()
     out = {"root": args.root, "build_s": time.perf_counter() - t0, "card": cs.card()}
@@ -58,6 +61,15 @@ def main():
             fn = getattr(fk, name)
             out[f"{name}_{mode}_ms"] = cs.cuda_ms(torch, lambda: fn(V, W, H, mode), 10)
     del W, H
+    for si, (m2, n2, k2) in enumerate(cs.COMPARE):
+        g = np.random.default_rng(si)
+        V2, W2, H2 = (torch.from_numpy(g.uniform(0.05, 1.0, s).astype(np.float32)).cuda()
+                      for s in ((m2, n2), (m2, k2), (k2, n2)))
+        for name, fn in (("plain", lambda: dk.kl_phi_dot_ht_dma_reference(V2, W2, H2)),
+                         ("phi_dot_ht", lambda: fk.phi_dot_ht(V2, W2, H2, "kl")),
+                         ("dma", lambda: dk.kl_phi_dot_ht_dma(V2, W2, H2))):
+            out[f"wphase_{m2}x{n2}r{k2}_{name}_ms"] = cs.cuda_ms(torch, fn, 10)
+        del V2, W2, H2
     W0 = rng.uniform(size=(m, k)).astype(np.float32)
     H0 = rng.uniform(size=(k, n)).astype(np.float32)
     kw = dict(W_init=W0, H_init=H0, tolerance=1e-30, method="fused", device="cuda")

@@ -12,10 +12,11 @@ without printing the last line:
 0. device check (no CUDA device: exit 1), the card's name and power
    limit from nvidia-smi, TF32 off for matmuls and cuDNN;
 1. build the CUDA kernels from csrc/ with nvcc; each kernel's registers
-   and spills, and for the tensor-core kernels of fused.cu (phi_dot_ht,
-   wt_dot_phi, cost_terms) the count of tensor-core instructions (HMMA /
-   HGMMA) in the library's SASS from ``cuobjdump -sass``, which must not
-   be 0;
+   and spills (none allowed in the tensor-core kernels), and for every
+   instantiation of the tensor-core kernels (phi_dot_ht, wt_dot_phi and
+   cost_terms in fused.cu, kl_phi_dot_ht_dma in fused_dma.cu) the count of
+   tensor-core instructions (HMMA / HGMMA) in the library's SASS from
+   ``cuobjdump -sass``, which must not be 0;
 2. each kernel in both modes against its plain PyTorch version on the
    card at 300x700 k=40, 40 000x10 000 k=100 and 2 000x3 000 k=1024:
    max relative error <= 1e-4 (tests/test_pallas.py's f32 threshold),
@@ -26,8 +27,10 @@ without printing the last line:
    rate (3xTF32, 495 / 3 = 165 TFLOP/s) and its bytes (V, W and H read
    once, the output written once) at 3.35 TB/s, with which of the two
    binds and the kernel's share of it; the streamed KL W-phase kernel
-   (kl_phi_dot_ht_dma, k <= 512) likewise at 300x700 k=40 and the
-   W-phase comparison's three shapes, and a ValueError at k=1024;
+   (kl_phi_dot_ht_dma, k <= 512) likewise, bit-identical over two runs,
+   at 300x700 k=40, the W-phase comparison's three shapes (TFLOP/s, 4mnk,
+   at the main one) and both sides of each of its tier edges at
+   2 000x3 000, each with the tier that ran; a ValueError at k=1024;
 3. the main path, ``nmf(method="fused")`` at 40 000x10 000 rank 100 f32,
    KL and IS, 10 iterations, with every kernel's launch counter
    (kl_phi_dot_ht_dma's too) set to 0 before and read after, each fused
@@ -44,8 +47,9 @@ without printing the last line:
    seed of the same V) must land on the card;
 6. the W-phase comparison (benchmarks/pallas_compare.py's op and
    shapes): (V / (W H)) @ H' as the plain composition, phi_dot_ht and
-   kl_phi_dot_ht_dma, ms by CUDA events, against the one-V-read floor
-   from a device-to-device copy measured in the same run;
+   kl_phi_dot_ht_dma (with the tier that ran), ms by CUDA events, against
+   the one-V-read floor from a device-to-device copy measured in the same
+   run;
 7. nmf_hals at 100 000x10 000 rank 200 f32: 20 plain sweeps (ms/iter,
    the sweeps' share), 20 extrapolated, bench.py's time-to-tolerance loop
    from random and NNDSVD-seeded inits (seeding inside the clock);
@@ -80,14 +84,17 @@ KERNELS = (("phi_dot_ht", "nmf_toolbox_tpu/ops/pallas/fused.py:128"),
            ("wt_dot_phi", "nmf_toolbox_tpu/ops/pallas/fused.py:218"),
            ("cost_terms", "nmf_toolbox_tpu/ops/pallas/fused.py:292"))
 SOURCE = "nmf_toolbox_tpu_torch/csrc/fused.cu"
-# The tensor-core kernels of SOURCE: wrapper, kernel template and the
-# template arguments (TRANS) that select it in the mangled name.
+# The tensor-core kernels: wrapper, kernel template and the template
+# arguments that select it in the mangled name (phase_kernel's TRANS).
 TENSOR_CORE = (("phi_dot_ht", "phase_kernel", "ILb0E"),
                ("wt_dot_phi", "phase_kernel", "ILb1E"),
-               ("cost_terms", "cost_kernel", "ILb"))
+               ("cost_terms", "cost_kernel", "ILb"),
+               ("kl_phi_dot_ht_dma", "kl_dma_kernel", "ILi"))
 DMA = ("kl_phi_dot_ht_dma", "nmf_toolbox_tpu/ops/pallas/fused_dma.py:85",
        "nmf_toolbox_tpu_torch/csrc/fused_dma.cu")
 CHECK_SHAPES = ((300, 700, 40), (40_000, 10_000, 100), (2_000, 3_000, 1024))
+# Both sides of each edge between kl_phi_dot_ht_dma's tiers, and k = 512.
+DMA_EDGES = tuple((2_000, 3_000, k) for k in (64, 65, 128, 129, 256, 257, 424, 425, 512))
 MAIN = (40_000, 10_000, 100)   # the KL shape of models/nmf.py:316-321
 GRAM = (100_000, 10_000, 200)  # bench.py's headline shape
 COMPARE = ((40_000, 10_000, 100), (20_000, 5_000, 100), (10_000, 10_000, 200))
@@ -235,11 +242,12 @@ def phase1_build():
     counts = tensor_core_counts(_build)
     for wrapper, template, selector in TENSOR_CORE:
         mine = {fn: c for fn, c in counts.items() if template in fn and selector in fn}
-        total = sum(mine.values())
-        say(f"phase 1 sass {wrapper}: {total} tensor-core instructions (HMMA/HGMMA) "
-            f"in {len(mine)} instantiations of {template} ({sorted(mine.values())})")
-        if total == 0:
-            raise AssertionError(f"{wrapper}: no HMMA or HGMMA in the library's SASS")
+        say(f"phase 1 sass {wrapper}: {sum(mine.values())} tensor-core instructions "
+            f"(HMMA/HGMMA) in {len(mine)} instantiations of {template} "
+            f"({sorted(mine.values())})")
+        if not mine or min(mine.values()) == 0:
+            raise AssertionError(f"{wrapper}: an instantiation of {template} has no "
+                                 "HMMA or HGMMA in the library's SASS")
     # Each kernel's registers and spills, from nvcc's -Xptxas -v output.
     name = None
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
@@ -304,8 +312,19 @@ def phase2_kernels(torch, fk, main_V):
     return stats
 
 
+def dma_tier(lib, k):
+    """The tier kl_phi_dot_ht_dma launches at k, from the library."""
+    import ctypes
+    info = (ctypes.c_int * 5)()
+    tier = lib.nmf_dma_tier(k, info)
+    return {"tier": tier, "rows": info[0], "warps": info[1], "column_groups": info[2],
+            "w_split_at_load": bool(info[3]), "blocks_per_sm": info[4],
+            "smem_bytes": lib.nmf_dma_smem_bytes(k)}
+
+
 def check_dma(torch, dk, V, W, H, stats, label):
-    """kl_phi_dot_ht_dma against its plain version on one input."""
+    """kl_phi_dot_ht_dma against its plain version on one input, and
+    bit-identical over two runs."""
     got = dk.kl_phi_dot_ht_dma(V, W, H)
     torch.cuda.synchronize()
     want = dk.kl_phi_dot_ht_dma_reference(V, W, H)
@@ -314,29 +333,35 @@ def check_dma(torch, dk, V, W, H, stats, label):
     if not rel <= REL_TOL:
         raise AssertionError(f"kl_phi_dot_ht_dma at {label}: max relative "
                              f"error {rel:.3g} > {REL_TOL}")
+    if not torch.equal(got, dk.kl_phi_dot_ht_dma(V, W, H)):
+        raise AssertionError(f"kl_phi_dot_ht_dma at {label}: two runs differ in their bits")
     stats["max_abs_err"] = max(stats["max_abs_err"], abs_)
     stats["max_rel_err"] = max(stats["max_rel_err"], rel)
     return rel, abs_
 
 
-def phase2_dma(torch, dk, main_V):
-    """The streamed W-phase kernel at the check shapes it takes (k <= 512)
-    and the W-phase comparison's shapes; k = 1024 must raise."""
+def phase2_dma(torch, dk, lib, main_V):
+    """The streamed W-phase kernel at the check shapes it takes (k <= 512),
+    the W-phase comparison's shapes and its tier edges; k = 1024 must
+    raise."""
     stats = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     rng = np.random.default_rng(2)
-    for (m, n, k) in ((300, 700, 40),) + COMPARE:
+    for (m, n, k) in ((300, 700, 40),) + COMPARE + DMA_EDGES:
         V = main_V if (m, n) == MAIN[:2] else torch.from_numpy(
             rng.uniform(0.1, 1, (m, n)).astype(np.float32)).cuda()
         W = torch.from_numpy(rng.uniform(0.1, 1, (m, k)).astype(np.float32)).cuda()
         H = torch.from_numpy(rng.uniform(0.1, 1, (k, n)).astype(np.float32)).cuda()
         rel, abs_ = check_dma(torch, dk, V, W, H, stats, f"{m}x{n} k={k}")
-        line = f"phase 2 kl_phi_dot_ht_dma {m}x{n} k={k}: rel {rel:.3g}, abs {abs_:.3g}"
+        line = (f"phase 2 kl_phi_dot_ht_dma {m}x{n} k={k}: rel {rel:.3g}, abs {abs_:.3g}, "
+                f"bits equal over two runs, tier {json.dumps(dma_tier(lib, k))}")
         if (m, n, k) == MAIN:
             stats["ms"] = cuda_ms(torch, lambda: dk.kl_phi_dot_ht_dma(V, W, H), 5)
             stats["plain_ms"] = cuda_ms(
                 torch, lambda: dk.kl_phi_dot_ht_dma_reference(V, W, H), 5)
             stats["bound_ms"], stats["bound_by"] = bound(DMA[0], "kl", m, n, k)
-            line += (f", kernel {stats['ms']:.3f} ms, plain {stats['plain_ms']:.3f} ms, "
+            stats["tflops"] = flops(DMA[0], "kl", m, n, k) / (stats["ms"] * 1e-3) / 1e12
+            line += (f", kernel {stats['ms']:.3f} ms ({stats['tflops']:.1f} TFLOP/s), "
+                     f"plain {stats['plain_ms']:.3f} ms, "
                      f"bound {stats['bound_ms']:.3f} ms by {stats['bound_by']} "
                      f"({100 * stats['bound_ms'] / stats['ms']:.1f}% of bound)")
         say(line)
@@ -474,7 +499,7 @@ def phase6_wphase_compare(torch, fk, dk, lib, stats):
             row = {"variant": name, "shape": f"{m}x{n} r{k}", "ms": ms,
                    "floor_ms": floor_ms, "pct_of_floor": 100 * floor_ms / ms}
             if name == "dma":
-                row["smem_bytes"] = lib.nmf_dma_smem_bytes(k)
+                row.update(dma_tier(lib, k))
             say(f"phase 6 {json.dumps(row)}")
         del V, W, H
     launches = dk.kl_phi_dot_ht_dma_launches
@@ -649,7 +674,7 @@ def main():
     H0 = rng.uniform(size=(k, n)).astype(np.float32)
 
     stats = phase2_kernels(torch, fk, V)
-    dma_stats = phase2_dma(torch, dk, V)
+    dma_stats = phase2_dma(torch, dk, _build.load(), V)
     main_path = phase3_main_path(torch, fk, dk, nmf, V, W0, H0)
     del V
     torch.cuda.empty_cache()
@@ -691,6 +716,7 @@ def main():
         "max_rel_err": dma_stats["max_rel_err"], "ms": dma_stats["ms"],
         "plain_ms": dma_stats["plain_ms"], "bound_ms": dma_stats["bound_ms"],
         "bound_by": dma_stats["bound_by"], "library_ms": None,
+        "tflops": dma_stats["tflops"],
     })
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -258,6 +258,23 @@ class Result:
     def __getitem__(self, i):
         return getattr(self, self.fields[i])
 
+    @property
+    def final_cost(self) -> float:
+        """Last valid cost entry, robust to per-solver trace semantics
+        (initial-cost offset traces have length n_iters+1; lnmf's
+        untrimmed trace is zero-padded past n_iters).  For the batched
+        engines' (B, iters) traces this is the best problem's final cost
+        (the min over the batch at the last iteration); ``cost[:, -1]``
+        gives the per-problem values.  ``cost`` is NumPy, so this is a
+        Python float from NumPy."""
+        c = np.asarray(self.cost)
+        if c.ndim == 2:
+            return float(np.min(c[:, -1]))
+        n = int(self.n_iters)
+        if len(c) in (n, n + 1) or n == 0:
+            return float(c[-1])
+        return float(c[max(n - 1, 0)])
+
 
 def unwrap_sources(arr, blocks, axis: int, was_seq: bool):
     """Split a concatenated factor back into per-source tensors (on the

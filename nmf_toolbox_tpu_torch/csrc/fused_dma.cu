@@ -4,258 +4,330 @@
 // CUDA counterpart of the Pallas kernel in
 // nmf_toolbox_tpu/ops/pallas/fused_dma.py (kl_phi_dot_ht_dma), the
 // manually double-buffered variant of the fused W-phase.  Where
-// fused.cu's w_phase_kernel loads its tiles with plain loads and may
-// split the n loop into spans summed by a second kernel, this kernel:
+// fused.cu's phase_kernel cuts k into output chunks of at most 128 (each
+// rebuilding V_hat over all of k) and may cut the n loop into spans
+// summed by a second kernel, this kernel:
 //   * gives one block a TM-row block of the output for the whole n loop:
 //     the sum over n stays in the block's registers, with no span split,
-//     scratch buffer or second kernel;
+//     scratch buffer or second kernel, so reruns give identical bits;
 //   * keeps the block's W rows (TM x k) resident in shared memory, as the
 //     Pallas kernel keeps its W row block in VMEM;
-//   * streams each V tile (TM x TN) and the H tile it meets (k x TN) from
-//     device memory into shared memory through a two-stage cp.async
-//     pipeline: the copy of tile j+1 is issued before the compute on
-//     tile j, as the Pallas kernel's two-slot make_async_copy buffer
-//     does.  H (4 MB at n = 10 000, k = 100) does not fit in shared
-//     memory as it fits in VMEM, so it is streamed with V and served
-//     from L2 to the blocks after the first.
-// Per tile, V_hat = W_rows @ H_tile is rebuilt in registers with f32
-// FMAs, the ratio V / V_hat goes to shared memory, and the contraction
-// with H_tile' adds into the block's (TM, k) accumulators.  Tensor cores
-// are not used; the Pallas kernel's bf16 MXU inputs are not copied.
+//   * streams each V tile (TM x TN) and the H tile it meets (k x TN)
+//     through a two-stage cp.async ring: the copy of tile j+1 is issued
+//     before the compute on tile j, as the Pallas kernel's two-slot
+//     make_async_copy buffer does;
+//   * builds V_hat over all of k once per tile, for every k <= 512.
+//
+// Both products run on the tensor cores in 3xTF32 (mma.sync m16n8k8), as
+// in fused.cu: an f32 operand x is split into hi = tf32(x) and lo =
+// tf32(x - hi), a product is lo*hi + hi*lo + hi*hi (small terms first,
+// lo*lo dropped) with f32 accumulation.  The tensor cores truncate as
+// they accumulate, so each tile's second product starts from zeroed
+// fragments and reaches the running output through one rounded f32 add.
+// Each landed H tile is split once for all warps (hi in place, lo
+// beside it); where shared memory allows, the resident W rows are split
+// once at load, and otherwise as they are read.
+//
+// Warps: RW row groups of 16 rows by CW column groups.  Warp (rg, cg)
+// owns output rows 16 rg.. and the cg-th group of kcw <= 128 columns of
+// k, whose 16 x kcw accumulators (kcw / 2 a thread) stay in its
+// registers for the whole loop.  Per tile it forms its part of V_hat,
+// the contraction over its own columns of k, for its 16 rows and all TN
+// columns.  With one column group that is V_hat itself; with several,
+// the parts pass through shared memory and each warp adds its row
+// group's CW parts in a fixed order.  The field V / V_hat is then formed
+// in registers in the accumulator layout and fed to the second product
+// as the A operand straight from registers, with the loop index permuted
+// inside each group of 8 (as fused.cu does), against the H tile's rows
+// of the warp's output columns.  The tier (RW, CW, output subtiles per
+// warp, W split at load or not) is picked per launch from k: see TIERS.
 //
 // Bound on the H100: arithmetic.  4mnk FLOPs against one 4mn-byte read
-// of V: about 100 FLOP/byte at k = 100, far above the card's f32 ratio.
+// of V: about 100 FLOP/byte at k = 100.
 //
 // Scope: 1 <= k <= 512 (the Pallas kernel's documented scope), any
 // (m, n).  Rows past m and columns past n load as zero and no ratio is
 // formed there; inside the matrix the ratio carries no guard, as in
 // Pallas.  Row-major contiguous operands.
-//
-// Shapes: 256 threads as a 16 x 16 grid (tx, ty).  TM = 32 rows per block
-// (2 per thread), TN = 32 columns per tile.  The output's k columns are
-// spread over tx (column tx + 16 b), so a thread holds 2 x NB
-// accumulators with 16 * NB >= k: NB is a template parameter, picked per
-// launch as the smallest power of two that covers k.
-// Grid fill: cdiv(m, 32) blocks.  16-row blocks would double the blocks
-// at thin m, but measured slower at all three shapes of the W-phase
-// comparison (each H tile serves half the rows), so the grid stays at
-// 32 rows, under-filled where m is small.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "tile_ops.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads per block
-constexpr int RM = 2;            // output rows per thread
-constexpr int TM = 16 * RM;      // output rows per block
-constexpr int TN = 32;           // V columns per tile
-constexpr int HSTR = TN + 4;     // padded H / ratio row: float4-aligned, and
-                                 // 8 consecutive rows hit 8 distinct bank quads
-constexpr int STAGES = 2;        // cp.async pipeline depth
+constexpr int TN = 24;      // V columns per loop tile
+// Stride of the [c][l] H tiles and the [r][l] V and V_hat-part tiles: 24
+// mod 32, so each warp's fragment loads (at (t, g) and float2 at (g, 2t))
+// hit 32 distinct banks.  The [r][c] W rows use k8 + 4 (4 mod 8).
+constexpr int CS = TN;
+constexpr int STAGES = 2;   // cp.async ring depth
 constexpr int MAX_K = 512;
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ constexpr int round16(int k) { return cdiv(k, 16) * 16; }
+__host__ __device__ constexpr int kpad(int k) { return 8 * cdiv(k, 8); }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  // src-size 0 fills the 16 bytes with zeros and reads nothing.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Shared-memory floats of one block: resident W rows (transposed), the
-// STAGES ring of V and H tiles, and the ratio tile.
-constexpr size_t dma_smem_floats(int k) {
-  return (size_t)TM * round16(k)                 // Ws[c][r]
-         + (size_t)STAGES * TM * TN              // Vs[s][r][t]
-         + (size_t)STAGES * round16(k) * HSTR    // Hs[s][c][t]
-         + (size_t)TM * HSTR;                    // Ps[r][t]
-}
-
-// Issue the cp.async copies of tile jt (V rows i0.., columns jt*TN..;
-// H rows 0..k-1, same columns) into stage buffers Vs, Hs.  vec: n % 4 == 0
-// and 16-byte aligned bases, so every 16-byte chunk lies wholly inside or
-// wholly outside the matrix.
-__device__ __forceinline__ void load_tile(const float* __restrict__ V,
-                                          const float* __restrict__ H,
-                                          float* Vs, float* Hs, int m, int n,
-                                          int k, int i0, int jt, bool vec) {
-  const int tid = threadIdx.x, j0 = jt * TN;
-  if (vec) {
-    for (int e = tid; e < TM * TN / 4; e += NT) {
-      const int r = e / (TN / 4), t = 4 * (e % (TN / 4));
-      const int gi = i0 + r, gj = j0 + t;
-      const bool ok = gi < m && gj < n;
-      cp_async16(&Vs[r * TN + t], ok ? V + (size_t)gi * n + gj : V, ok);
-    }
-    for (int e = tid; e < k * TN / 4; e += NT) {
-      const int c = e / (TN / 4), t = 4 * (e % (TN / 4));
-      const int gj = j0 + t;
-      const bool ok = gj < n;
-      cp_async16(&Hs[c * HSTR + t], ok ? H + (size_t)c * n + gj : H, ok);
-    }
-  } else {
-    for (int e = tid; e < TM * TN; e += NT) {
-      const int r = e / TN, t = e % TN;
-      const int gi = i0 + r, gj = j0 + t;
-      const bool ok = gi < m && gj < n;
-      cp_async4(&Vs[r * TN + t], ok ? V + (size_t)gi * n + gj : V, ok);
-    }
-    for (int e = tid; e < k * TN; e += NT) {
-      const int c = e / TN, t = e % TN;
-      const int gj = j0 + t;
-      const bool ok = gj < n;
-      cp_async4(&Hs[c * HSTR + t], ok ? H + (size_t)c * n + gj : H, ok);
-    }
-  }
-}
-
-template <int NB>
-__global__ void __launch_bounds__(NT)
+// Block of RW x CW warps: rows 16 RW, output columns of k in CW groups of
+// at most 8 NKW.  WSPLIT: the W rows are split into hi and lo at load.
+template <int RW, int CW, int NKW, bool WSPLIT>
+__global__ void __launch_bounds__(32 * RW * CW, CW == 1 ? 2 : 1)
 kl_dma_kernel(const float* __restrict__ V, const float* __restrict__ W,
               const float* __restrict__ H, float* __restrict__ out, int m,
-              int n, int k, bool vec) {
+              int n, int k, bool vec, bool vecw) {
+  constexpr int NT = 32 * RW * CW, TM = 16 * RW, NJ = TN / 8;
   extern __shared__ float4 smem4[];
-  const int kr = round16(k);
-  float* Ws = reinterpret_cast<float*>(smem4);   // [kr][TM]
-  float* Vs = Ws + (size_t)kr * TM;              // [STAGES][TM][TN]
-  float* Hs = Vs + STAGES * TM * TN;             // [STAGES][kr][HSTR]
-  float* Ps = Hs + (size_t)STAGES * kr * HSTR;   // [TM][HSTR]
+  const int k8 = kpad(k), ks = k8 + 4;
+  const int kcw = 8 * cdiv(k8 / 8, CW);        // columns of k per column group
+  float* Ws = reinterpret_cast<float*>(smem4);  // [TM][ks] W rows (WSPLIT: hi)
+  float* Wl = Ws + TM * ks;                     // [TM][ks] their lo (WSPLIT)
+  float* Hs0 = Wl + (WSPLIT ? TM * ks : 0);     // [STAGES][k8][CS] H tiles
+  float* Hl = Hs0 + STAGES * k8 * CS;           // [k8][CS] lo of the current one
+  float* Vs0 = Hl + k8 * CS;                    // [STAGES][TM][CS] V tiles
+  float* Xs = Vs0 + STAGES * TM * CS;           // [CW][TM][CS] V_hat parts (CW > 1)
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int i0 = blockIdx.x * TM;
-  const int tiles = cdiv(n, TN);
+  const int r0 = blockIdx.x * TM, tiles = cdiv(n, TN);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5, cg = warp % CW;
+  const int wr = 16 * (warp / CW);  // this warp's first row
+  const int c0 = cg * kcw;          // its first column of k
+  const int nk = k8 > c0 ? min(kcw, k8 - c0) / 8 : 0;  // its k-steps
 
-  // Tile 0 in flight first; the W rows and the zero pad rows of H
-  // (k..kr-1, never written by the copies) load meanwhile.
-  load_tile(V, H, Vs, Hs, m, n, k, i0, 0, vec);
+  // Tile q: H rows 0..k8 (zero from k) and V rows r0.., columns q TN..
+  auto issue = [&](int q) {
+    const int st = q % STAGES, l0 = q * TN;
+    copy_tile<NT>(Hs0 + st * k8 * CS, CS, H, n, 0, l0, k8, TN, k, n, vec);
+    copy_tile<NT>(Vs0 + st * TM * CS, CS, V, n, r0, l0, TM, TN, m, n, vec);
+  };
+  // The W rows (zero past m and k) travel with tile 0.
+  copy_tile<NT>(Ws, ks, W, k, r0, 0, TM, k8, m, k, vecw);
+  issue(0);
   cp_async_commit();
-  for (int e = tid; e < TM * kr; e += NT) {
-    const int r = e / kr, c = e % kr, gi = i0 + r;
-    Ws[c * TM + r] = (gi < m && c < k) ? W[(size_t)gi * k + c] : 0.f;
-  }
-  for (int e = tid; e < STAGES * (kr - k) * HSTR; e += NT) {
-    const int s = e / ((kr - k) * HSTR), q = e % ((kr - k) * HSTR);
-    Hs[(size_t)s * kr * HSTR + (size_t)k * HSTR + q] = 0.f;
-  }
 
-  float o[RM][NB];
+  // o[p]: rows (g, g + 8) x columns c0 + 8p + (2t, 2t + 1).
+  float o[NKW][4];
 #pragma unroll
-  for (int a = 0; a < RM; ++a)
+  for (int p = 0; p < NKW; ++p)
 #pragma unroll
-    for (int b = 0; b < NB; ++b) o[a][b] = 0.f;
+    for (int e = 0; e < 4; ++e) o[p][e] = 0.f;
 
-  for (int jt = 0; jt < tiles; ++jt) {
-    const int s = jt % STAGES;
-    if (jt + 1 < tiles)
-      load_tile(V, H, Vs + ((jt + 1) % STAGES) * TM * TN,
-                Hs + (size_t)((jt + 1) % STAGES) * kr * HSTR, m, n, k, i0,
-                jt + 1, vec);
+  for (int q = 0; q < tiles; ++q) {
+    if (q + 1 < tiles) issue(q + 1);
     cp_async_commit();   // possibly empty: keeps one group per tile
-    cp_async_wait<1>();  // all but the newest group done: tile jt has landed
+    cp_async_wait<1>();  // all but the newest group done: tile q has landed
     __syncthreads();
-    const float* Vt = Vs + s * TM * TN;
-    const float* Ht = Hs + (size_t)s * kr * HSTR;
+    const int st = q % STAGES, l0 = q * TN;
+    float* Hs = Hs0 + st * k8 * CS;
+    const float* Vt = Vs0 + st * TM * CS;
+    if (WSPLIT && q == 0) split_tile<NT>(Ws, Wl, TM * ks);
+    split_tile<NT>(Hs, Hl, k8 * CS);
+    __syncthreads();
 
-    // V_hat[RM*ty + a, 2*tx + b] over c = 0..k-1, in order.
-    float vh[RM][2];
+    // This warp's part of V_hat (rows wr.., the tile's TN columns): acc
+    // the hi*hi products, acs the two small ones, as two chains.
+    float acc[NJ][4], acs[NJ][4];
 #pragma unroll
-    for (int a = 0; a < RM; ++a) vh[a][0] = vh[a][1] = 0.f;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = acs[j][e] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < k; ++c) {
-      const float2 h = *reinterpret_cast<const float2*>(&Ht[c * HSTR + 2 * tx]);
-      const float2 w2 = *reinterpret_cast<const float2*>(&Ws[c * TM + 2 * ty]);
-      const float w[RM] = {w2.x, w2.y};
+    for (int kk = 0; kk < nk; ++kk) {
+      const int c = c0 + 8 * kk + t, a0 = (wr + g) * ks + c;
+      const int ia[4] = {a0, a0 + 8 * ks, a0 + 4, a0 + 8 * ks + 4};
+      uint32_t ah[4], al[4];
 #pragma unroll
-      for (int a = 0; a < RM; ++a) {
-        vh[a][0] = fmaf(w[a], h.x, vh[a][0]);
-        vh[a][1] = fmaf(w[a], h.y, vh[a][1]);
-      }
-    }
-    // The ratio, zero outside the matrix.
-#pragma unroll
-    for (int a = 0; a < RM; ++a) {
-      const int r = RM * ty + a, gi = i0 + r, t = 2 * tx, gj = jt * TN + t;
-      const float2 v = *reinterpret_cast<const float2*>(&Vt[r * TN + t]);
-      float2 p;
-      p.x = (gi < m && gj < n) ? v.x / vh[a][0] : 0.f;
-      p.y = (gi < m && gj + 1 < n) ? v.y / vh[a][1] : 0.f;
-      *reinterpret_cast<float2*>(&Ps[r * HSTR + t]) = p;
-    }
-    __syncthreads();
-
-    // o[a][b] += sum_t Ps[RM*ty + a, t] * Ht[tx + 16 b, t]
-#pragma unroll
-    for (int t = 0; t < TN; t += 4) {
-      float4 p[RM];
-#pragma unroll
-      for (int a = 0; a < RM; ++a)
-        p[a] = *reinterpret_cast<const float4*>(&Ps[(RM * ty + a) * HSTR + t]);
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        if (16 * b < k) {  // uniform over the block
-          const float4 h = *reinterpret_cast<const float4*>(&Ht[(tx + 16 * b) * HSTR + t]);
-#pragma unroll
-          for (int a = 0; a < RM; ++a) {
-            o[a][b] = fmaf(p[a].x, h.x, o[a][b]);
-            o[a][b] = fmaf(p[a].y, h.y, o[a][b]);
-            o[a][b] = fmaf(p[a].z, h.z, o[a][b]);
-            o[a][b] = fmaf(p[a].w, h.w, o[a][b]);
-          }
+      for (int i = 0; i < 4; ++i) {
+        if (WSPLIT) {
+          ah[i] = __float_as_uint(Ws[ia[i]]);
+          al[i] = __float_as_uint(Wl[ia[i]]);
+        } else {
+          split(Ws[ia[i]], ah[i], al[i]);
         }
       }
+      uint32_t bh[NJ][2], bl[NJ][2];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        bh[j][0] = __float_as_uint(Hs[c * CS + 8 * j + g]);
+        bh[j][1] = __float_as_uint(Hs[(c + 4) * CS + 8 * j + g]);
+        bl[j][0] = __float_as_uint(Hl[c * CS + 8 * j + g]);
+        bl[j][1] = __float_as_uint(Hl[(c + 4) * CS + 8 * j + g]);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma(acs[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma(acs[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma(acc[j], ah, bh[j][0], bh[j][1]);
     }
-    __syncthreads();  // stage s is refilled by the next iteration's copies
+    // vh[j]: V_hat at rows (g, g + 8) x columns 8j + (2t, 2t + 1).
+    float vh[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vh[j][e] = acs[j][e] + acc[j][e];
+    if constexpr (CW > 1) {
+      // Parts through shared memory, added over column groups in order.
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(&Xs[(cg * TM + wr + g + 8 * h) * CS + 8 * j + 2 * t]) =
+              make_float2(vh[j][2 * h], vh[j][2 * h + 1]);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = (wr + g + 8 * h) * CS + 8 * j + 2 * t;
+          float2 s = *reinterpret_cast<const float2*>(&Xs[i]);
+#pragma unroll
+          for (int u = 1; u < CW; ++u) {
+            const float2 x = *reinterpret_cast<const float2*>(&Xs[u * TM * CS + i]);
+            s.x += x.x;
+            s.y += x.y;
+          }
+          vh[j][2 * h] = s.x;
+          vh[j][2 * h + 1] = s.y;
+        }
+    }
+
+    // The field, split, in A order: (g, l) (g+8, l) (g, l+1) (g+8, l+1)
+    // with l = 8j + 2t; zero outside the matrix.
+    uint32_t ph[NJ][4], pl[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int l = 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr + g + 8 * h;
+        const float2 v = *reinterpret_cast<const float2*>(&Vt[r * CS + l]);
+        const bool in_r = r0 + r < m;
+        const bool in0 = in_r && l0 + l < n, in1 = in_r && l0 + l + 1 < n;
+        split(in0 ? v.x / vh[j][2 * h] : 0.f, ph[j][h], pl[j][h]);
+        split(in1 ? v.y / vh[j][2 * h + 1] : 0.f, ph[j][h + 2], pl[j][h + 2]);
+      }
+    }
+    // out += field x H' over this tile: the field's fragment j meets H
+    // rows c0 + 8p + g at columns (8j + 2t, 8j + 2t + 1).  GP output
+    // subtiles at a time, with no branch inside a group, keep 2 GP chains
+    // in flight; a subtile past the warp's columns reads a valid row and
+    // its sums are never stored.
+    constexpr int GP = 2;
+#pragma unroll
+    for (int p0 = 0; p0 < NKW; p0 += GP) {
+      if (p0 < nk) {
+        float s[GP][4], hh[GP][4];
+#pragma unroll
+        for (int i = 0; i < GP; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][e] = hh[i][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int i = 0; i < GP; ++i) {
+            const int c = c0 + min(8 * (p0 + i), 8 * (nk - 1)) + g, l = 8 * j + 2 * t;
+            const float2 bh = *reinterpret_cast<const float2*>(&Hs[c * CS + l]);
+            const float2 bl = *reinterpret_cast<const float2*>(&Hl[c * CS + l]);
+            const uint32_t b0h = __float_as_uint(bh.x), b1h = __float_as_uint(bh.y);
+            mma(s[i], pl[j], b0h, b1h);
+            mma(s[i], ph[j], __float_as_uint(bl.x), __float_as_uint(bl.y));
+            mma(hh[i], ph[j], b0h, b1h);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < GP; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[p0 + i][e] += s[i][e] + hh[i][e];
+      }
+    }
+    __syncthreads();  // stage st and Hl are refilled next
   }
 
 #pragma unroll
-  for (int a = 0; a < RM; ++a) {
-    const int gi = i0 + RM * ty + a;
-    if (gi >= m) continue;
+  for (int p = 0; p < NKW; ++p) {
+    if (p >= nk) continue;
 #pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int c = tx + 16 * b;
-      if (c < k) out[(size_t)gi * k + c] = o[a][b];
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + wr + g + 8 * (e >> 1), c = c0 + 8 * p + 2 * t + (e & 1);
+      if (r < m && c < k) out[(size_t)r * k + c] = o[p][e];
     }
   }
 }
 
 using KernelFn = void (*)(const float*, const float*, const float*, float*,
-                          int, int, int, bool);
+                          int, int, int, bool, bool);
 
-KernelFn kernel_for(int k) {
-  if (k <= 32) return kl_dma_kernel<2>;
-  if (k <= 64) return kl_dma_kernel<4>;
-  if (k <= 128) return kl_dma_kernel<8>;
-  if (k <= 256) return kl_dma_kernel<16>;
-  return kl_dma_kernel<32>;
+struct Tier {
+  int max_k;     // the largest k this tier takes
+  int rw, cw;    // row groups of 16 rows, column groups of k
+  bool wsplit;   // W split into hi and lo at load
+  KernelFn fn;
+};
+
+template <int MAXK, int RW, int CW, int NKW, bool WSPLIT>
+Tier tier() {
+  static_assert(8 * NKW * CW >= kpad(MAXK), "a warp's accumulators must cover its columns");
+  return {MAXK, RW, CW, WSPLIT, kl_dma_kernel<RW, CW, NKW, WSPLIT>};
+}
+
+// The first tier whose max_k covers k launches.  Up to k = 128, one
+// column group (V_hat in registers) on 64-row blocks of 4 warps, 3
+// blocks per SM at k = 100; above, 48-row blocks with the columns in 2
+// groups up to k = 256 (2 blocks per SM up to k = 200) and in 4 up to k
+// = 424, the largest k whose block fits; beyond, 32-row blocks.  W is
+// split at load only at k <= 64, where its second copy costs no block
+// per SM: above, the block it costs measured slower on an H100 than
+// splitting W as it is read (PERF.md §6).  48-row blocks also put every
+// block of a 10 000-row problem on the card at once (209 blocks, 2 per
+// SM on 132 SMs).
+const Tier TIERS[] = {
+    tier<64, 4, 1, 8, true>(),
+    tier<128, 4, 1, 16, false>(),
+    tier<256, 3, 2, 16, false>(),
+    tier<424, 3, 4, 16, false>(),
+    tier<MAX_K, 2, 4, 16, false>(),
+};
+
+const Tier& tier_for(int k) {
+  int i = 0;
+  while (TIERS[i].max_k < k) ++i;
+  return TIERS[i];
+}
+
+// Shared-memory floats of one block of tier t at k: the W rows (hi and
+// lo if split), the H ring and the lo of the current H tile, the V ring,
+// and the V_hat parts of several column groups.
+size_t dma_floats(const Tier& t, int k) {
+  const size_t tm = 16 * t.rw, k8 = kpad(k);
+  return (t.wsplit ? 2 : 1) * tm * (k8 + 4) + (STAGES + 1) * k8 * CS +
+         STAGES * tm * CS + (t.cw > 1 ? t.cw * tm * CS : 0);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The dma kernel's dynamic shared memory per block, in bytes.
+// The dma kernel's dynamic shared memory per block, in bytes (0 for k
+// outside 1..512).
 long long nmf_dma_smem_bytes(int k) {
-  return (long long)sizeof(float) * dma_smem_floats(k);
+  if (k < 1 || k > MAX_K) return 0;
+  return (long long)(sizeof(float) * dma_floats(tier_for(k), k));
+}
+
+// The tier that k launches (its index in TIERS; -1 for k outside
+// 1..512), and in info: rows per block, warps per block, column groups,
+// W split at load (0/1), and blocks per SM from the occupancy API on the
+// current device (0 if that fails).
+int nmf_dma_tier(int k, int* info) {
+  if (k < 1 || k > MAX_K) return -1;
+  const Tier& t = tier_for(k);
+  const int threads = 32 * t.rw * t.cw, smem = (int)nmf_dma_smem_bytes(k);
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(t.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, t.fn, threads, smem) != cudaSuccess)
+    per_sm = 0;
+  info[0] = 16 * t.rw;
+  info[1] = threads / 32;
+  info[2] = t.cw;
+  info[3] = t.wsplit ? 1 : 0;
+  info[4] = per_sm;
+  return (int)(&t - TIERS);
 }
 
 // out (m, k) = (V / (W H)) @ H'.  1 <= k <= 512; returns cudaGetLastError()
@@ -263,15 +335,16 @@ long long nmf_dma_smem_bytes(int k) {
 int nmf_kl_phi_dot_ht_dma(const float* V, const float* W, const float* H,
                           float* out, int m, int n, int k, void* stream) {
   if (k < 1 || k > MAX_K || m < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(V) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(H) % 16 == 0;
-  const KernelFn fn = kernel_for(k);
-  const size_t smem = sizeof(float) * dma_smem_floats(k);
+  const Tier& t = tier_for(k);
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(V) |
+                                   reinterpret_cast<uintptr_t>(H)) % 16 == 0;
+  const bool vecw = k % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+  const size_t smem = sizeof(float) * dma_floats(t, k);
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      t.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fn<<<cdiv(m, TM), NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      V, W, H, out, m, n, k, vec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  t.fn<<<cdiv(m, 16 * t.rw), 32 * t.rw * t.cw, smem, s>>>(V, W, H, out, m, n, k, vec, vecw);
   return (int)cudaGetLastError();
 }
 

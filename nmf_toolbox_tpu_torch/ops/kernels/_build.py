@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 Every source is compiled at first use with ``nvcc``, one process per
-source, all started together, and the objects are linked into one shared
+source, all started together (the ``csrc/*.cuh`` headers they include
+are hashed with them), and the objects are linked into one shared
 library with a plain C interface, which is loaded with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds.  The library lands
 in ``nmf_toolbox_tpu_torch/_build/`` under a name that hashes the sources
@@ -51,6 +52,9 @@ _SIGNATURES = {
     "nmf_kl_phi_dot_ht_dma": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
     # (k) -> the dma kernel's shared memory per block, in bytes
     "nmf_dma_smem_bytes": ((_I,), ctypes.c_longlong),
+    # (k, int[5] out: rows, warps, column groups, W split, blocks per SM)
+    # -> the dma kernel's tier for k (-1 outside 1..512)
+    "nmf_dma_tier": ((_I, _P), _I),
 }
 
 
@@ -69,13 +73,19 @@ def nvcc_path() -> str:
 
 
 def sources() -> list[Path]:
+    """The sources nvcc compiles, one object each."""
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources include."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
-    """Where the build of the current sources and flags lives."""
+    """Where the build of the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libnmf_kernels_{h.hexdigest()[:16]}.so"
 
@@ -123,12 +133,16 @@ def build() -> Path:
     return out
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the entry points that ``lib`` has for ctypes."""
+    for name, (args, res) in _SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = list(args)
+            getattr(lib, name).restype = res
+    return lib
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use and typed for ctypes."""
-    lib = ctypes.CDLL(str(build()))
-    for name, (args, res) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(args)
-        fn.restype = res
-    return lib
+    return bind(ctypes.CDLL(str(build())))

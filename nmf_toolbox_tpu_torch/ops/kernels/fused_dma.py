@@ -34,10 +34,13 @@ kl_phi_dot_ht_dma_launches = 0
 #   (benchmarks/pallas_compare.py --variant dma) and its test.
 # Bound on the H100: arithmetic, as phi_dot_ht: 4mnk FLOPs against one
 #   4mn-byte read of V.
-# Design: one block owns a 32-row block of the output for the whole n
-#   loop (no span split, no second kernel), keeps its W rows in shared
-#   memory, and streams V tiles and the H tiles they meet through a
-#   two-stage cp.async pipeline.  f32 FMAs, no tensor cores.
+# Design: one block owns a row block of the output for the whole n loop
+#   (no span split, no second kernel, identical bits over reruns), keeps
+#   its W rows in shared memory, and streams V tiles and the H tiles they
+#   meet through a two-stage cp.async ring.  Both products run on the
+#   tensor cores in 3xTF32, and V_hat is built over all of k once per
+#   tile; above k = 128 the output columns are split over warps, whose
+#   parts of V_hat meet in shared memory.  Tiers by k: csrc/fused_dma.cu.
 # ---------------------------------------------------------------------------
 
 def kl_phi_dot_ht_dma_reference(V, W, H):

@@ -1,11 +1,11 @@
-// Host emulation of the CUDA features csrc/fused.cu uses, so that its
-// kernels compile with a C++20 host compiler and run on the CPU
+// Host emulation of the CUDA features the kernels of csrc/ use, so that
+// they compile with a C++20 host compiler and run on the CPU
 // (tests/test_torch_fused_emulated.py).  Each block runs in turn; its
 // threads are std::threads, __syncthreads is a block-wide barrier, and a
 // warp's mma.sync gathers the 32 lanes' fragments through a warp barrier
 // and gives each lane its part of the 16x8 product, as __shfl_xor_sync
 // exchanges the lanes' values.  cp.async copies at once.  The test
-// replaces fused.cu's asm helpers with the ones below.
+// replaces the asm helpers of csrc/tile_ops.cuh with the ones below.
 #pragma once
 #include <barrier>
 #include <cmath>

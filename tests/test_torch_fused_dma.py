@@ -84,17 +84,19 @@ def test_guards():
 
 def test_build_covers_every_source(monkeypatch, tmp_path):
     """The library is built from every csrc/*.cu, and its name hashes
-    all of them, so editing any one source gives a new build."""
-    names = [p.name for p in _build.sources()]
-    assert names == ["fused.cu", "fused_dma.cu"]
-    for p in _build.sources():
+    all of them and the headers they include, so editing any one source
+    or header gives a new build."""
+    assert [p.name for p in _build.sources()] == ["fused.cu", "fused_dma.cu"]
+    assert [p.name for p in _build.headers()] == ["tile_ops.cuh"]
+    for p in _build.sources() + _build.headers():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    first = _build.library_path()
-    assert first.name.startswith("libnmf_kernels_")
-    (tmp_path / "fused_dma.cu").write_text(
-        (tmp_path / "fused_dma.cu").read_text() + "\n// edited\n")
-    assert _build.library_path() != first
+    seen = {_build.library_path()}
+    assert next(iter(seen)).name.startswith("libnmf_kernels_")
+    for name in ("fused_dma.cu", "tile_ops.cuh"):
+        (tmp_path / name).write_text((tmp_path / name).read_text() + "\n// edited\n")
+        seen.add(_build.library_path())
+    assert len(seen) == 3
     assert "nmf_kl_phi_dot_ht_dma" in _build._SIGNATURES
 
 
@@ -110,10 +112,16 @@ def cuda():
     return torch.device("cuda")
 
 
+# Ragged and odd shapes, k = 1, and both sides of each tier edge (64,
+# 128, 256) up to k = 512.
+CARD_SHAPES = [(300, 700, 40), (301, 701, 40), (300, 703, 1), (1000, 999, 300),
+               (20_000, 5_000, 100), (2000, 3000, 64), (2000, 3000, 65),
+               (2000, 3000, 128), (2000, 3000, 129), (2000, 3000, 256),
+               (2000, 3000, 257), (2000, 3000, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k", [(300, 700, 40), (301, 701, 40), (300, 703, 1),
-                                   (1000, 999, 300), (2000, 3000, 512),
-                                   (20_000, 5_000, 100)])
+@pytest.mark.parametrize("m,n,k", CARD_SHAPES)
 def test_kernel_matches_plain_version_on_card(cuda, m, n, k):
     V, W, H = (torch.from_numpy(x).to(cuda) for x in make(m, n, k))
     before = dk.kl_phi_dot_ht_dma_launches
@@ -123,6 +131,15 @@ def test_kernel_matches_plain_version_on_card(cuda, m, n, k):
     want = dk.kl_phi_dot_ht_dma_reference(V, W, H)
     assert got.device == V.device and got.shape == want.shape
     assert rel(got.cpu().numpy(), want.cpu().numpy()) < REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [100, 200, 512])
+def test_kernel_reruns_bit_identical_on_card(cuda, k):
+    """A block owns its output rows for the whole n loop, with no atomics:
+    two runs give the same bits."""
+    V, W, H = (torch.from_numpy(x).to(cuda) for x in make(1000, 2000, k))
+    assert torch.equal(dk.kl_phi_dot_ht_dma(V, W, H), dk.kl_phi_dot_ht_dma(V, W, H))
 
 
 @pytest.mark.cuda

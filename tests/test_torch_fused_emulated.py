@@ -1,14 +1,15 @@
-"""The W/H-phase and cost kernels' CUDA source (csrc/fused.cu), run on the CPU.
+"""The kernels' CUDA sources (csrc/fused.cu, csrc/fused_dma.cu), run on the CPU.
 
-There is no card and no nvcc here, so the source is compiled with the host
-C++ compiler against ``tests/cuda_emu.h``, which emulates threads, block
-and warp barriers, the warp's ``mma.sync`` and ``cp.async``; the asm
-helpers of fused.cu are swapped for the emulated ones and the kernel
-launches for ``emu_launch``.  The library keeps fused.cu's C interface,
-so it is called through the same ctypes signatures as the real one, and
-its results are held against the plain versions in f64.  This checks the
-kernels' indexing (fragment layouts, transposed tiles, ragged edges,
-k-chunks, spans), not the card's rounding.  Imports no JAX.
+There is no card and no nvcc here, so each source is compiled with the
+host C++ compiler against ``tests/cuda_emu.h``, which emulates threads,
+block and warp barriers, the warp's ``mma.sync`` and ``cp.async``; the
+csrc headers a source includes are inlined, their asm helpers swapped
+for the emulated ones and the kernel launches for ``emu_launch``.  Each
+library keeps its source's C interface, so it is called through the same
+ctypes signatures as the real one, and its results are held against the
+plain versions in f64.  This checks the kernels' indexing (fragment
+layouts, transposed tiles, ragged edges, k-chunks, spans, the dma
+kernel's tiers), not the card's rounding.  Imports no JAX.
 """
 import ctypes
 import re
@@ -23,8 +24,11 @@ torch.set_num_threads(2)
 
 from nmf_toolbox_tpu_torch.ops.kernels import _build  # noqa: E402
 from nmf_toolbox_tpu_torch.ops.kernels import fused as fk  # noqa: E402
+from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk  # noqa: E402
 
 EMU_H = _build.PKG_DIR.parent / "tests" / "cuda_emu.h"
+# The asm helpers of csrc/tile_ops.cuh, each with an emulated twin in
+# cuda_emu.h.
 ASM_HELPERS = ("void cp_async16", "void cp_async4", "void cp_async_commit",
                "void cp_async_wait", "void mma(")
 # The emulated mma sums in f64 and rounds once; what is left is the f32
@@ -32,38 +36,44 @@ ASM_HELPERS = ("void cp_async16", "void cp_async4", "void cp_async_commit",
 REL_TOL = 1e-5
 
 
-def host_source(src: str) -> str:
-    """fused.cu with the emulation header, emulated asm helpers and
-    emulated launches; the rest of the source is unchanged."""
+def host_source(path, helpers=ASM_HELPERS) -> str:
+    """The CUDA source at ``path`` with the csrc headers it includes
+    inlined, the emulation header, emulated asm ``helpers`` and emulated
+    launches; the rest of the source is unchanged."""
+    src = re.sub(r'#include "(\w+\.cuh)"',
+                 lambda m: (path.parent / m.group(1)).read_text(), path.read_text())
     src = src.replace("#include <cuda_runtime.h>", f'#include "{EMU_H}"')
-    for name in ASM_HELPERS:
+    for name in helpers:
         # Each helper runs from its declaration line to the closing brace
         # at the start of a line; with a template line before it if any.
         m = re.search(r"(template <int N>\n)?__device__ __forceinline__ "
                       + re.escape(name) + r".*?\n}\n", src, re.S)
-        assert m, f"no {name} in fused.cu"
+        assert m, f"no {name} in {path.name}"
         src = src[:m.start()] + src[m.end():]
     src = src.replace("extern __shared__ float4 smem4[];", "float4* smem4 = emu_smem;")
     src = re.sub(r"([\w:.]+(?:<[^<>]*>)?)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ", src)
     return src
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def compile_emulated(source, tmp):
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("needs a C++20 host compiler (g++ or clang++)")
-    tmp = tmp_path_factory.mktemp("fused_emu")
-    cpp, so = tmp / "fused_emu.cpp", tmp / "libfused_emu.so"
-    cpp.write_text(host_source((_build.CSRC / "fused.cu").read_text()))
+    cpp, so = tmp / f"{source.stem}_emu.cpp", tmp / f"lib{source.stem}_emu.so"
+    cpp.write_text(host_source(source))
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
                     "-o", str(so), str(cpp)], check=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
-    for name, (args, res) in _build._SIGNATURES.items():
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = list(args)
-            getattr(lib, name).restype = res
-    return lib
+    return _build.bind(ctypes.CDLL(str(so)))
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return compile_emulated(_build.CSRC / "fused.cu", tmp_path_factory.mktemp("fused_emu"))
+
+
+@pytest.fixture(scope="module")
+def dma_lib(tmp_path_factory):
+    return compile_emulated(_build.CSRC / "fused_dma.cu", tmp_path_factory.mktemp("dma_emu"))
 
 
 def make(m, n, k, seed):
@@ -150,3 +160,40 @@ def test_emulated_cost_terms_matches_plain_version(lib, mode, m, n, k):
         assert np.all(np.isfinite(partials))  # every tile's block wrote its sum
         assert abs(partials.sum() - float(g)) <= 1e-6 * abs(float(g))
         assert abs(float(g) - float(w)) <= REL_TOL * abs(float(w))
+
+
+# (m, n, k) for the dma kernel, every tier (k <= 64, <= 128, <= 256,
+# <= 424, <= 512) and both sides of each tier edge: k = 1, k % 4 != 0
+# (4-byte copies of W), odd n (4-byte copies of V and H), ragged row
+# blocks and loop tiles, m and n below one block and one tile, and k = 512.
+DMA_SHAPES = [(33, 47, 1), (70, 50, 5), (64, 24, 64), (20, 49, 65), (65, 30, 128),
+              (49, 31, 129), (17, 26, 256), (35, 25, 257), (9, 40, 300),
+              (50, 13, 424), (33, 17, 425), (40, 23, 512)]
+
+
+@pytest.mark.parametrize("m,n,k", DMA_SHAPES)
+def test_emulated_dma_kernel_matches_plain_version(dma_lib, m, n, k):
+    V, W, H = make(m, n, k, seed=m + n + k)
+    out = np.full((m, k), np.nan, np.float32)
+    assert dma_lib.nmf_kl_phi_dot_ht_dma(ptr(V), ptr(W), ptr(H), ptr(out), m, n, k,
+                                         None) == 0
+    want = dk.kl_phi_dot_ht_dma_reference(*(torch.from_numpy(x).double() for x in (V, W, H)))
+    assert rel(out, want.numpy()) < REL_TOL
+
+
+def test_emulated_dma_tiers_and_shared_memory(dma_lib):
+    """Every k in 1..512 has a tier within an H100 block's shared memory
+    (232 448 bytes); k outside that range has none."""
+    info = (ctypes.c_int * 5)()
+    tiers = []
+    for k in range(1, dk.MAX_K + 1):
+        assert 0 < dma_lib.nmf_dma_smem_bytes(k) <= 232448
+        tiers.append(dma_lib.nmf_dma_tier(k, info))
+        assert info[0] * info[2] == 16 * info[1]  # 16 rows per warp of a column group
+    assert tiers == sorted(tiers) and set(tiers) == {0, 1, 2, 3, 4}
+    edges = (64, 65, 128, 129, 256, 257, 424, 425, 512)
+    assert [tiers[k - 1] for k in edges] == [0, 1, 1, 2, 2, 3, 3, 4, 4]
+    for k in (0, 513):
+        assert dma_lib.nmf_dma_tier(k, info) == -1
+        assert dma_lib.nmf_dma_smem_bytes(k) == 0
+        assert dma_lib.nmf_kl_phi_dot_ht_dma(None, None, None, None, 4, 4, k, None) != 0
