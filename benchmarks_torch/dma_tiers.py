@@ -3,16 +3,17 @@
 
     python benchmarks_torch/dma_tiers.py
 
-Builds this checkout's kernels, then for each variant (VARIANTS) a library of
-``csrc/fused_dma.cu`` alone whose ``TIERS`` table holds the variant's
-entries (``tier<MAXK, RW, CW, NKW, WSPLIT>()``, comma-separated), with
-nvcc's registers and spills and each tier's blocks per SM.  At each of
-SHAPES (inputs uniform(0.05, 1), as chip_smoke.py's phase 6 makes them) it
-times, by ``chip_smoke.cuda_ms`` (10 launches after a warm-up), the plain
-composition, ``phi_dot_ht``, the built-in dma kernel and every variant,
-with each variant's max relative error against the plain version, and
-prints one JSON line per shape with the card's name and power limit.
-The variants are the alternatives PERF.md §6 records.
+Builds, beside this checkout's kernels, one library of
+``csrc/fused_dma.cu`` for each of VARIANTS: a source that defines the
+variant's ``NMF_DMA_TIERS`` (``tier<MAXK, RW, CW, NKW>()`` entries) and
+includes ``fused_dma.cu``, with nvcc's registers and spills.  At each of
+SHAPES (inputs uniform(0.05, 1), as chip_smoke.py's phase 6 makes them)
+it times the built-in kernel and every variant in two rounds, in turns,
+by ``chip_smoke.cuda_ms`` (10 launches after a warm-up), with each
+variant's max relative error against the built-in kernel and the tier
+that ran, and prints one JSON line per shape with the card's name and
+power limit.  The plain composition and ``phi_dot_ht`` at these shapes
+are timed by chip_smoke.py's phase 6 and ``turns.py``.
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -20,7 +21,6 @@ from __future__ import annotations
 import ctypes
 import json
 import pathlib
-import re
 import shutil
 import subprocess
 import sys
@@ -31,40 +31,32 @@ HERE = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
 import chip_smoke as cs  # noqa: E402
 
-BASE = "tier<64, 4, 1, 8, true>(), tier<128, 4, 1, 16, false>()"
-TOP = "tier<424, 3, 4, 16, false>(), tier<MAX_K, 2, 4, 16, false>()"
+K128 = "tier<128, 4, 1, 16>()"
+K256 = "tier<256, 3, 2, 16>()"
+TOP = "tier<424, 3, 4, 16>(), tier<MAX_K, 2, 4, 16>()"
 VARIANTS = {
-    # W split as it is read for k <= 64 too.
-    "w_read_k64": "tier<64, 4, 1, 8, false>(), tier<128, 4, 1, 16, false>(), "
-                  "tier<256, 3, 2, 16, false>(), " + TOP,
-    # W split into hi and lo at load for k <= 128 (2 blocks per SM at k = 100).
-    "w_split_k128": "tier<64, 4, 1, 8, true>(), tier<128, 4, 1, 16, true>(), "
-                    "tier<256, 3, 2, 16, false>(), " + TOP,
-    # k <= 256 on 64-row blocks of 8 warps, W split at load (1 block per SM).
-    "rows64_k256": f"{BASE}, tier<256, 4, 2, 16, true>(), {TOP}",
-    # k <= 256 on 32-row blocks of 8 warps in 4 column groups, W split at load.
-    "rows32_cw4_k256": f"{BASE}, tier<256, 2, 4, 8, true>(), {TOP}",
-    # k <= 256 on 32-row blocks of 4 warps (2 blocks per SM at k = 200).
-    "rows32_cw2_k256": f"{BASE}, tier<256, 2, 2, 16, false>(), {TOP}",
+    # k <= 64 on a tier of its own with 8 output subtiles a warp, not 16.
+    "k64_tier": f"tier<64, 4, 1, 8>(), {K128}, {K256}, {TOP}",
+    # k <= 256 on 64-row blocks of 8 warps in 2 column groups.
+    "rows64_k256": f"{K128}, tier<256, 4, 2, 16>(), {TOP}",
+    # k <= 256 on 32-row blocks of 4 warps in 2 column groups.
+    "rows32_cw2_k256": f"{K128}, tier<256, 2, 2, 16>(), {TOP}",
+    # k <= 256 on 32-row blocks of 8 warps in 4 column groups.
+    "rows32_cw4_k256": f"{K128}, tier<256, 2, 4, 8>(), {TOP}",
     # 257 <= k <= 424 on 32-row blocks, as k <= 512.
-    "rows32_k424": f"{BASE}, tier<256, 3, 2, 16, false>(), tier<MAX_K, 2, 4, 16, false>()",
+    "rows32_k424": f"{K128}, {K256}, tier<MAX_K, 2, 4, 16>()",
 }
 SHAPES = ((40_000, 10_000, 64),) + cs.COMPARE + ((10_000, 10_000, 300),)
 
 
 def build_variant(_build, name, tiers, out_dir):
-    """The dma library with its TIERS table replaced, and nvcc's output."""
-    src = (_build.CSRC / "fused_dma.cu").read_text()
-    table = re.compile(r"const Tier TIERS\[\] = \{.*?\n\};", re.S)
-    if not table.search(src):
-        raise RuntimeError("no TIERS table in fused_dma.cu")
+    """Start nvcc on the dma library with the variant's tier table."""
     d = out_dir / name
     d.mkdir(parents=True)
-    for h in _build.headers():
-        shutil.copy(h, d)
-    (d / "fused_dma.cu").write_text(table.sub(f"const Tier TIERS[] = {{{tiers}}};", src))
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-           str(d / "fused_dma.cu")]
+    src = d / "variant.cu"
+    src.write_text(f"#define NMF_DMA_TIERS {tiers}\n#include \"fused_dma.cu\"\n")
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
+           "-o", str(d / "lib.so"), str(src)]
     return d / "lib.so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True)
 
@@ -75,14 +67,12 @@ def main():
         sys.exit("dma_tiers: no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     from nmf_toolbox_tpu_torch.ops.kernels import _build
-    from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
     from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
-    main_lib = _build.load()
     out_dir = _build.BUILD_DIR / "dma_tiers"
     shutil.rmtree(out_dir, ignore_errors=True)
     builds = {name: build_variant(_build, name, tiers, out_dir)
               for name, tiers in VARIANTS.items()}
-    libs = {}
+    libs = {"built_in": _build.load()}
     for name, (path, proc) in builds.items():
         text, _ = proc.communicate()
         if proc.returncode:
@@ -107,22 +97,20 @@ def main():
         g = np.random.default_rng(si)
         V, W, H = (torch.from_numpy(g.uniform(0.05, 1.0, s).astype(np.float32)).cuda()
                    for s in ((m, n), (m, k), (k, n)))
-        ref = dk.kl_phi_dot_ht_dma_reference(V, W, H)
-        row = {"card": card, "shape": f"{m}x{n} r{k}",
-               "tier": cs.dma_tier(main_lib, k),
-               "plain_ms": cs.cuda_ms(torch, lambda: dk.kl_phi_dot_ht_dma_reference(V, W, H), 10),
-               "phi_dot_ht_ms": cs.cuda_ms(torch, lambda: fk.phi_dot_ht(V, W, H, "kl"), 10),
-               "dma_ms": cs.cuda_ms(torch, lambda: dk.kl_phi_dot_ht_dma(V, W, H), 10)}
+        want = dk.kl_phi_dot_ht_dma(V, W, H)
+        row = {"card": card, "shape": f"{m}x{n} r{k}"}
         for name, lib in libs.items():
             if lib.nmf_dma_smem_bytes(k) > 232448:
                 row[name] = "does not fit"
                 continue
-            row[name] = {"ms": cs.cuda_ms(torch, lambda: dma(lib, V, W, H), 10),
-                         "max_rel_err": cs.rel_err(dma(lib, V, W, H), ref),
-                         "tier": cs.dma_tier(lib, k)}
-        row["dma_again_ms"] = cs.cuda_ms(torch, lambda: dk.kl_phi_dot_ht_dma(V, W, H), 10)
+            row[name] = {"ms": [], "tier": cs.dma_tier(lib, k),
+                         "max_rel_err": cs.rel_err(dma(lib, V, W, H), want)}
+        for _ in range(2):
+            for name, lib in libs.items():
+                if isinstance(row[name], dict):
+                    row[name]["ms"].append(cs.cuda_ms(torch, lambda: dma(lib, V, W, H), 10))
         print(json.dumps(row), flush=True)
-        del V, W, H, ref
+        del V, W, H, want
 
 
 if __name__ == "__main__":

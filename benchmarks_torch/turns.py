@@ -12,7 +12,9 @@ makes them) the plain composition, ``phi_dot_ht`` and
 ``kl_phi_dot_ht_dma`` likewise; then ``nmf(method="fused")`` KL and IS
 (host clock around 10 synchronised iterations, after a 2-iteration
 warm-up), and ``chip_smoke.profile_device_ms`` over one more fused KL
-run.  Timing only: each tree's own chip_smoke.py checks its kernels.
+run; last, ``nmf_hals`` at chip_smoke.py's phase 7 shape and inputs
+(100 000x10 000 r200, 20 sweeps after a 2-sweep warm-up).  Timing only:
+each tree's own chip_smoke.py checks its kernels.
 
 Prints one JSON line with the card's name and power limit.  Trees share
 the package name, so each tree runs in its own process; to compare two
@@ -44,7 +46,7 @@ def main():
         sys.exit("turns: no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
-    from nmf_toolbox_tpu_torch import nmf
+    from nmf_toolbox_tpu_torch import nmf, nmf_hals
     from nmf_toolbox_tpu_torch.ops.kernels import _build
     from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
     from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
@@ -80,6 +82,16 @@ def main():
         out[f"fused_{d}_final_cost"] = float(np.asarray(res.cost)[-1])
     out["profile_fused_kl"] = cs.profile_device_ms(
         torch, lambda: nmf(V, k, divergence="kl", maxiter=cs.ITERS, **kw), cs.ITERS)
+    del V
+    m, n, k = cs.GRAM
+    V = 0.05 + 0.95 * torch.rand((m, n), generator=torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    W0, H0 = (torch.rand(s, generator=g, device="cuda") for s in ((m, k), (k, n)))
+    nmf_hals(V, k, W_init=W0, H_init=H0, maxiter=2, tolerance=1e-30)
+    _, ms = cs.wall_ms(torch, lambda: nmf_hals(V, k, W_init=W0, H_init=H0,
+                                               maxiter=cs.HALS_ITERS, tolerance=1e-30))
+    out["hals_ms_per_iter"] = ms / cs.HALS_ITERS
     print(json.dumps(out), flush=True)
 
 

@@ -94,7 +94,7 @@ DMA = ("kl_phi_dot_ht_dma", "nmf_toolbox_tpu/ops/pallas/fused_dma.py:85",
        "nmf_toolbox_tpu_torch/csrc/fused_dma.cu")
 CHECK_SHAPES = ((300, 700, 40), (40_000, 10_000, 100), (2_000, 3_000, 1024))
 # Both sides of each edge between kl_phi_dot_ht_dma's tiers, and k = 512.
-DMA_EDGES = tuple((2_000, 3_000, k) for k in (64, 65, 128, 129, 256, 257, 424, 425, 512))
+DMA_EDGES = tuple((2_000, 3_000, k) for k in (128, 129, 256, 257, 424, 425, 512))
 MAIN = (40_000, 10_000, 100)   # the KL shape of models/nmf.py:316-321
 GRAM = (100_000, 10_000, 200)  # bench.py's headline shape
 COMPARE = ((40_000, 10_000, 100), (20_000, 5_000, 100), (10_000, 10_000, 200))
@@ -315,11 +315,10 @@ def phase2_kernels(torch, fk, main_V):
 def dma_tier(lib, k):
     """The tier kl_phi_dot_ht_dma launches at k, from the library."""
     import ctypes
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 4)()
     tier = lib.nmf_dma_tier(k, info)
     return {"tier": tier, "rows": info[0], "warps": info[1], "column_groups": info[2],
-            "w_split_at_load": bool(info[3]), "blocks_per_sm": info[4],
-            "smem_bytes": lib.nmf_dma_smem_bytes(k)}
+            "blocks_per_sm": info[3], "smem_bytes": lib.nmf_dma_smem_bytes(k)}
 
 
 def check_dma(torch, dk, V, W, H, stats, label):

@@ -25,8 +25,8 @@
 // they accumulate, so each tile's second product starts from zeroed
 // fragments and reaches the running output through one rounded f32 add.
 // Each landed H tile is split once for all warps (hi in place, lo
-// beside it); where shared memory allows, the resident W rows are split
-// once at load, and otherwise as they are read.
+// beside it); the resident W rows are split as they are read, since a
+// hi/lo copy of them beside the H ring costs a block per SM (PERF.md §6).
 //
 // Warps: RW row groups of 16 rows by CW column groups.  Warp (rg, cg)
 // owns output rows 16 rg.. and the cg-th group of kcw <= 128 columns of
@@ -40,7 +40,7 @@
 // as the A operand straight from registers, with the loop index permuted
 // inside each group of 8 (as fused.cu does), against the H tile's rows
 // of the warp's output columns.  The tier (RW, CW, output subtiles per
-// warp, W split at load or not) is picked per launch from k: see TIERS.
+// warp) is picked per launch from k: see TIERS.
 //
 // Bound on the H100: arithmetic.  4mnk FLOPs against one 4mn-byte read
 // of V: about 100 FLOP/byte at k = 100.
@@ -65,8 +65,8 @@ constexpr int MAX_K = 512;
 __host__ __device__ constexpr int kpad(int k) { return 8 * cdiv(k, 8); }
 
 // Block of RW x CW warps: rows 16 RW, output columns of k in CW groups of
-// at most 8 NKW.  WSPLIT: the W rows are split into hi and lo at load.
-template <int RW, int CW, int NKW, bool WSPLIT>
+// at most 8 NKW.
+template <int RW, int CW, int NKW>
 __global__ void __launch_bounds__(32 * RW * CW, CW == 1 ? 2 : 1)
 kl_dma_kernel(const float* __restrict__ V, const float* __restrict__ W,
               const float* __restrict__ H, float* __restrict__ out, int m,
@@ -75,9 +75,8 @@ kl_dma_kernel(const float* __restrict__ V, const float* __restrict__ W,
   extern __shared__ float4 smem4[];
   const int k8 = kpad(k), ks = k8 + 4;
   const int kcw = 8 * cdiv(k8 / 8, CW);        // columns of k per column group
-  float* Ws = reinterpret_cast<float*>(smem4);  // [TM][ks] W rows (WSPLIT: hi)
-  float* Wl = Ws + TM * ks;                     // [TM][ks] their lo (WSPLIT)
-  float* Hs0 = Wl + (WSPLIT ? TM * ks : 0);     // [STAGES][k8][CS] H tiles
+  float* Ws = reinterpret_cast<float*>(smem4);  // [TM][ks] W rows
+  float* Hs0 = Ws + TM * ks;                    // [STAGES][k8][CS] H tiles
   float* Hl = Hs0 + STAGES * k8 * CS;           // [k8][CS] lo of the current one
   float* Vs0 = Hl + k8 * CS;                    // [STAGES][TM][CS] V tiles
   float* Xs = Vs0 + STAGES * TM * CS;           // [CW][TM][CS] V_hat parts (CW > 1)
@@ -115,7 +114,6 @@ kl_dma_kernel(const float* __restrict__ V, const float* __restrict__ W,
     const int st = q % STAGES, l0 = q * TN;
     float* Hs = Hs0 + st * k8 * CS;
     const float* Vt = Vs0 + st * TM * CS;
-    if (WSPLIT && q == 0) split_tile<NT>(Ws, Wl, TM * ks);
     split_tile<NT>(Hs, Hl, k8 * CS);
     __syncthreads();
 
@@ -132,14 +130,7 @@ kl_dma_kernel(const float* __restrict__ V, const float* __restrict__ W,
       const int ia[4] = {a0, a0 + 8 * ks, a0 + 4, a0 + 8 * ks + 4};
       uint32_t ah[4], al[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (WSPLIT) {
-          ah[i] = __float_as_uint(Ws[ia[i]]);
-          al[i] = __float_as_uint(Wl[ia[i]]);
-        } else {
-          split(Ws[ia[i]], ah[i], al[i]);
-        }
-      }
+      for (int i = 0; i < 4; ++i) split(Ws[ia[i]], ah[i], al[i]);
       uint32_t bh[NJ][2], bl[NJ][2];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -256,33 +247,30 @@ using KernelFn = void (*)(const float*, const float*, const float*, float*,
 struct Tier {
   int max_k;     // the largest k this tier takes
   int rw, cw;    // row groups of 16 rows, column groups of k
-  bool wsplit;   // W split into hi and lo at load
   KernelFn fn;
 };
 
-template <int MAXK, int RW, int CW, int NKW, bool WSPLIT>
+template <int MAXK, int RW, int CW, int NKW>
 Tier tier() {
   static_assert(8 * NKW * CW >= kpad(MAXK), "a warp's accumulators must cover its columns");
-  return {MAXK, RW, CW, WSPLIT, kl_dma_kernel<RW, CW, NKW, WSPLIT>};
+  return {MAXK, RW, CW, kl_dma_kernel<RW, CW, NKW>};
 }
 
 // The first tier whose max_k covers k launches.  Up to k = 128, one
 // column group (V_hat in registers) on 64-row blocks of 4 warps, 3
 // blocks per SM at k = 100; above, 48-row blocks with the columns in 2
 // groups up to k = 256 (2 blocks per SM up to k = 200) and in 4 up to k
-// = 424, the largest k whose block fits; beyond, 32-row blocks.  W is
-// split at load only at k <= 64, where its second copy costs no block
-// per SM: above, the block it costs measured slower on an H100 than
-// splitting W as it is read (PERF.md §6).  48-row blocks also put every
-// block of a 10 000-row problem on the card at once (209 blocks, 2 per
-// SM on 132 SMs).
-const Tier TIERS[] = {
-    tier<64, 4, 1, 8, true>(),
-    tier<128, 4, 1, 16, false>(),
-    tier<256, 3, 2, 16, false>(),
-    tier<424, 3, 4, 16, false>(),
-    tier<MAX_K, 2, 4, 16, false>(),
-};
+// = 424, the largest k whose block fits; beyond, 32-row blocks.  48-row
+// blocks put every block of a 10 000-row problem on the card at once
+// (209 blocks, 2 per SM on 132 SMs).  A source that defines
+// NMF_DMA_TIERS before including this file launches its own table
+// (benchmarks_torch/dma_tiers.py).
+#ifndef NMF_DMA_TIERS
+#define NMF_DMA_TIERS                                      \
+  tier<128, 4, 1, 16>(), tier<256, 3, 2, 16>(),           \
+      tier<424, 3, 4, 16>(), tier<MAX_K, 2, 4, 16>()
+#endif
+const Tier TIERS[] = {NMF_DMA_TIERS};
 
 const Tier& tier_for(int k) {
   int i = 0;
@@ -290,12 +278,12 @@ const Tier& tier_for(int k) {
   return TIERS[i];
 }
 
-// Shared-memory floats of one block of tier t at k: the W rows (hi and
-// lo if split), the H ring and the lo of the current H tile, the V ring,
-// and the V_hat parts of several column groups.
+// Shared-memory floats of one block of tier t at k: the W rows, the H
+// ring and the lo of the current H tile, the V ring, and the V_hat parts
+// of several column groups.
 size_t dma_floats(const Tier& t, int k) {
   const size_t tm = 16 * t.rw, k8 = kpad(k);
-  return (t.wsplit ? 2 : 1) * tm * (k8 + 4) + (STAGES + 1) * k8 * CS +
+  return tm * (k8 + 4) + (STAGES + 1) * k8 * CS +
          STAGES * tm * CS + (t.cw > 1 ? t.cw * tm * CS : 0);
 }
 
@@ -312,8 +300,8 @@ long long nmf_dma_smem_bytes(int k) {
 
 // The tier that k launches (its index in TIERS; -1 for k outside
 // 1..512), and in info: rows per block, warps per block, column groups,
-// W split at load (0/1), and blocks per SM from the occupancy API on the
-// current device (0 if that fails).
+// and blocks per SM from the occupancy API on the current device (0 if
+// that fails).
 int nmf_dma_tier(int k, int* info) {
   if (k < 1 || k > MAX_K) return -1;
   const Tier& t = tier_for(k);
@@ -325,8 +313,7 @@ int nmf_dma_tier(int k, int* info) {
   info[0] = 16 * t.rw;
   info[1] = threads / 32;
   info[2] = t.cw;
-  info[3] = t.wsplit ? 1 : 0;
-  info[4] = per_sm;
+  info[3] = per_sm;
   return (int)(&t - TIERS);
 }
 

@@ -112,12 +112,12 @@ def cuda():
     return torch.device("cuda")
 
 
-# Ragged and odd shapes, k = 1, and both sides of each tier edge (64,
-# 128, 256) up to k = 512.
+# Ragged and odd shapes, k = 1, and both sides of each tier edge (128,
+# 256, 424) up to k = 512.
 CARD_SHAPES = [(300, 700, 40), (301, 701, 40), (300, 703, 1), (1000, 999, 300),
-               (20_000, 5_000, 100), (2000, 3000, 64), (2000, 3000, 65),
-               (2000, 3000, 128), (2000, 3000, 129), (2000, 3000, 256),
-               (2000, 3000, 257), (2000, 3000, 512)]
+               (20_000, 5_000, 100), (2000, 3000, 128), (2000, 3000, 129),
+               (2000, 3000, 256), (2000, 3000, 257), (2000, 3000, 424),
+               (2000, 3000, 425), (2000, 3000, 512)]
 
 
 @pytest.mark.cuda

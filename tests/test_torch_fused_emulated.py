@@ -162,8 +162,8 @@ def test_emulated_cost_terms_matches_plain_version(lib, mode, m, n, k):
         assert abs(float(g) - float(w)) <= REL_TOL * abs(float(w))
 
 
-# (m, n, k) for the dma kernel, every tier (k <= 64, <= 128, <= 256,
-# <= 424, <= 512) and both sides of each tier edge: k = 1, k % 4 != 0
+# (m, n, k) for the dma kernel, every tier (k <= 128, <= 256, <= 424,
+# <= 512) and both sides of each tier edge: k = 1, k % 4 != 0
 # (4-byte copies of W), odd n (4-byte copies of V and H), ragged row
 # blocks and loop tiles, m and n below one block and one tile, and k = 512.
 DMA_SHAPES = [(33, 47, 1), (70, 50, 5), (64, 24, 64), (20, 49, 65), (65, 30, 128),
@@ -184,15 +184,15 @@ def test_emulated_dma_kernel_matches_plain_version(dma_lib, m, n, k):
 def test_emulated_dma_tiers_and_shared_memory(dma_lib):
     """Every k in 1..512 has a tier within an H100 block's shared memory
     (232 448 bytes); k outside that range has none."""
-    info = (ctypes.c_int * 5)()
+    info = (ctypes.c_int * 4)()
     tiers = []
     for k in range(1, dk.MAX_K + 1):
         assert 0 < dma_lib.nmf_dma_smem_bytes(k) <= 232448
         tiers.append(dma_lib.nmf_dma_tier(k, info))
         assert info[0] * info[2] == 16 * info[1]  # 16 rows per warp of a column group
-    assert tiers == sorted(tiers) and set(tiers) == {0, 1, 2, 3, 4}
-    edges = (64, 65, 128, 129, 256, 257, 424, 425, 512)
-    assert [tiers[k - 1] for k in edges] == [0, 1, 1, 2, 2, 3, 3, 4, 4]
+    assert tiers == sorted(tiers) and set(tiers) == {0, 1, 2, 3}
+    edges = (128, 129, 256, 257, 424, 425, 512)
+    assert [tiers[k - 1] for k in edges] == [0, 1, 1, 2, 2, 3, 3]
     for k in (0, 513):
         assert dma_lib.nmf_dma_tier(k, info) == -1
         assert dma_lib.nmf_dma_smem_bytes(k) == 0
