@@ -58,7 +58,28 @@ without printing the last line:
    within 1e-4 relative;
 8. nmf on the gram path at 100 000x10 000 rank 200 with init='nndsvd',
    in f32 and with data_dtype='bfloat16': costs finite and
-   non-increasing, the bf16 final cost within 1e-2 of the f32 one.
+   non-increasing, the bf16 final cost within 1e-2 of the f32 one;
+9. serving (benchmarks/batched_serving_tpu.py's shape): B = 256 problems
+   of 257x400 at rank 16, 100 iterations, f32, gamma bases times codes
+   + 0.01.  ``nmf_batched`` euclid f32, euclid with bf16-stored V and KL;
+   ``nmf_encode`` against problem 0's normalized bases, euclid and KL,
+   each with cost_every 1 and 10.  Median ms per call of 3 after a
+   warm-up and ms per problem; torch.profiler's idle share of a KL
+   encode.  Checks: problems 0 and 255 against the port's own ``nmf``
+   from the same inits (``W_fixed=True`` for encode), cost traces within
+   rtol 1e-4; every trace finite and non-increasing within 1e-4
+   relative; cost_every=10 leaves H bit-identical; the bf16 final costs
+   within 1e-2 of f32; and each engine's inner solve runs on the card
+   under ``torch.cuda.set_sync_debug_mode("error")``, so it never waits
+   on the host;
+10. rank selection (benchmarks/rank_sweep_tpu.py's configuration): V =
+   2049x4000 of true rank 12, 16 restarts.  ``nmf_multiseed`` euclid and
+   KL at rank 16 (restarts 0 and 15 against single ``nmf`` runs within
+   rtol 1e-4; the euclid run's peak device memory far below 16 copies
+   of V), ``pick_rank`` over ranks 8, 16, 24, 32 with its seconds split
+   into the solves and scipy's linkage, and ``estimate_rank_svd`` on
+   phase 4's 100 000x10 000 V in memory on the card and streamed from a
+   host copy in blocks of 2000 columns: same rank, curves within 1e-4.
 
 Then a JSON line of per-kernel results and, last, the device line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
@@ -100,15 +121,26 @@ GRAM = (100_000, 10_000, 200)  # bench.py's headline shape
 COMPARE = ((40_000, 10_000, 100), (20_000, 5_000, 100), (10_000, 10_000, 200))
 # ^ benchmarks/pallas_compare.py:32
 WEIGHTED = (20_000, 2_000, 50)  # weighted HALS: 2k passes over m*n per sweep
+SERVING = (256, 257, 400, 16)  # B, m, n, k: benchmarks/batched_serving_tpu.py:39
+RANK_SWEEP = (2049, 4000, 12)  # m, n, true rank: benchmarks/rank_sweep_tpu.py:50-56
+RANK_SEEDS, RANK_CANDIDATES = 16, (8, 16, 24, 32)
+SVD_BLOCK = 2000      # columns per block of the streamed rank estimate
+SLEEP_CYCLES = 10 ** 9  # ~0.5 s of device clock ahead of each gated solve
+GATE_ITERS = 10       # iterations of a gated solve (its launches fit the queue)
 REL_TOL = 1e-4        # tests/test_pallas.py, f32 path
 SOLVER_RTOL = 2e-3    # tests/test_pallas.py::test_fused_solver_matches_naive
 ORACLE_RTOL = 1e-5    # bench.py objective check
 HALS_ORACLE_RTOL = 1e-4  # f32 HALS vs f64 HALS objective, 50 sweeps
 BF16_RTOL = 1e-2      # bf16-stored V vs f32 V, final gram-path cost
+ENGINE_RTOL = 1e-4    # batched engines vs single nmf, f32 cost traces
+GRAM_SLACK = 8 * float(np.finfo(np.float32).eps)  # of ||V||^2, euclidean traces
+FACTOR_RTOL = 1e-3    # batched engines vs single nmf, f32 factors (of max |x|)
+CURVE_ATOL = 1e-4     # in-memory vs streamed energy curves, f32
 REL_DECREASE_TOL = 1e-4  # bench.py:52
 TOL_CHUNK, TOL_CAP = 20, 600  # bench.py:103,133
 ITERS = 10
 HALS_ITERS = 20
+ENGINE_ITERS = 100  # phases 9 and 10
 # The card's peaks for a kernel's bound (H100 SXM data sheet): f32-accurate
 # tensor-core work in 3xTF32 (three TF32 products per f32 product) and
 # device memory.
@@ -656,6 +688,263 @@ def phase8_nmf_options(torch, nmf, V):
         raise AssertionError(f"bf16 final cost {rel:.3g} from f32 > {BF16_RTOL}")
     say(f"phase 8 bf16 vs f32 final cost: {rel:.3g} relative")
 
+def median_ms(torch, fn, reps=3):
+    """Median host ms of ``reps`` synchronised calls after one warm-up."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        out, ms = wall_ms(torch, fn)
+        times.append(ms)
+    return out, float(np.median(times))
+
+
+def gram_floor(torch, V):
+    """The euclidean traces' absolute slack: the Gram identity
+    0.5 (||V||^2 - 2<W'V, H> + <W'W H, H>) cancels in f32 near a good fit,
+    so two summation orders differ by ~eps_f32 * ||V||^2 whatever the
+    cost, (B,) per matrix or one number for a shared V."""
+    return GRAM_SLACK * np.asarray(torch.sum(V.double() ** 2, dim=(-2, -1)).cpu())
+
+
+def check_engine(name, res, torch, refs, floor=0.0, rtol=ENGINE_RTOL):
+    """Finite traces, non-increasing within 1e-4 relative (plus ``floor``,
+    the euclidean traces' f32 slack), factors on the card; ``refs`` maps a
+    problem index to the single-solver Result whose cost trace it must
+    match within ``rtol`` (plus ``floor``) and whose factors within
+    FACTOR_RTOL of their largest entry.  A bf16-stored V's trace is held
+    only to its single run, at BF16_RTOL: the products round the factors
+    to bf16 (as nmf's bf16 path does), and the Gram identity turns that
+    into noise of ~1e-4 of ||V||^2 near the fit, neither monotone nor
+    equal across summation orders.  Returns the worst relative cost and
+    factor gaps."""
+    monotone = rtol == ENGINE_RTOL
+    c = np.asarray(res.cost, np.float64)
+    floor = np.broadcast_to(np.asarray(floor, np.float64), c.shape[:1])[:, None]
+    if c.shape[1] != ENGINE_ITERS or not np.all(np.isfinite(c)):
+        raise AssertionError(f"{name}: cost shape {c.shape} or not finite")
+    if monotone and not np.all(np.diff(c, axis=1)
+                               <= REL_DECREASE_TOL * np.abs(c[:, :-1]) + floor):
+        raise AssertionError(f"{name}: a cost trace increased")
+    for f in ("W", "H"):
+        x = getattr(res, f)
+        if x.device.type != "cuda" or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: {f} not finite on the card")
+    worst, worst_f = 0.0, 0.0
+    for b, ref in refs.items():
+        r = np.asarray(ref.cost, np.float64)
+        gap = np.abs(c[b] - r)
+        if not (len(r) == ENGINE_ITERS and np.all(gap <= rtol * np.abs(r) + floor[b])):
+            raise AssertionError(f"{name}: problem {b} {np.max(gap / r):.3g} from single nmf")
+        worst = max(worst, float(np.max(gap / np.abs(r))))
+        for f in ("W", "H"):
+            x, y = getattr(res, f), getattr(ref, f).double()
+            x = (x[b] if x.ndim == 3 else x).double()  # encode's W is shared
+            gap_f = float((x - y).abs().max() / y.abs().max())
+            if not gap_f <= FACTOR_RTOL:
+                raise AssertionError(f"{name}: problem {b} {f} {gap_f:.3g} from single nmf")
+            worst_f = max(worst_f, gap_f)
+    return worst, worst_f
+
+
+def phase9_serving(torch):
+    from nmf_toolbox_tpu_torch import nmf, nmf_batched, nmf_encode
+    from nmf_toolbox_tpu_torch.core import EPS
+    from nmf_toolbox_tpu_torch.models import batched as tb
+    B, m, n, k = SERVING
+    rng = np.random.default_rng(0)
+    bases = rng.gamma(2.0, 1.0, (B, m, k)).astype(np.float32)
+    codes = rng.gamma(0.5, 1.0, (B, k, n)).astype(np.float32)
+    Vs = torch.from_numpy(np.einsum("bmk,bkn->bmn", bases, codes) + 0.01).cuda()
+    W0, H0 = (torch.from_numpy(rng.uniform(size=s).astype(np.float32)).cuda()
+              for s in ((B, m, k), (B, k, n)))
+    Wd = torch.from_numpy(bases[0] / np.sqrt((bases[0] ** 2).sum(0))).cuda()
+    a, b = (torch.ones((4, 8, 8), dtype=torch.bfloat16, device="cuda") for _ in range(2))
+    try:
+        torch.bmm(a, b, out_dtype=torch.float32)
+        say("phase 9 torch.bmm takes out_dtype (bf16 in, f32 out): yes")
+    except (TypeError, RuntimeError) as e:
+        say(f"phase 9 torch.bmm takes out_dtype: no ({type(e).__name__})")
+    one = dict(maxiter=ENGINE_ITERS, tolerance=1e-30)
+    runs = {
+        "batched euclidean f32": ("batched", {}),
+        "batched euclidean bf16": ("batched", {"data_dtype": "bfloat16"}),
+        "batched kl f32": ("batched", {"divergence": "kl"}),
+        "encode euclidean": ("encode", {}),
+        "encode euclidean cost_every=10": ("encode", {"cost_every": 10}),
+        "encode kl": ("encode", {"divergence": "kl"}),
+        "encode kl cost_every=10": ("encode", {"divergence": "kl", "cost_every": 10}),
+    }
+    out = {}
+    for name, (engine, cfg) in runs.items():
+        if engine == "batched":
+            res, ms = median_ms(torch, lambda: nmf_batched(
+                Vs, k, W_init=W0, H_init=H0, maxiter=ENGINE_ITERS, **cfg))
+            refs = {i: nmf(Vs[i], k, W_init=W0[i], H_init=H0[i], **one, **cfg)
+                    for i in (0, B - 1)}
+        else:
+            res, ms = median_ms(torch, lambda: nmf_encode(
+                Vs, Wd, H_init=H0, maxiter=ENGINE_ITERS, **cfg))
+            refs = {} if "cost_every" in cfg else {
+                i: nmf(Vs[i], k, W_init=Wd, W_fixed=True, H_init=H0[i], **one, **cfg)
+                for i in (0, B - 1)}
+        if "data_dtype" in cfg:
+            gap, gap_f = check_engine(name, res, torch, refs, rtol=BF16_RTOL)
+        else:
+            floor = 0.0 if cfg.get("divergence") == "kl" else gram_floor(torch, Vs)
+            gap, gap_f = check_engine(name, res, torch, refs, floor)
+        out[name] = {"ms_per_call": ms, "ms_per_problem": ms / B, "res": res,
+                     "cost_gap": gap, "factor_gap": gap_f}
+        say(f"phase 9 {name} B{B} {m}x{n} r{k}, {ENGINE_ITERS} iterations: "
+            f"{ms:.2f} ms/call, {1e3 * ms / B:.2f} us/problem, final cost "
+            f"mean {np.mean(res.cost[:, -1]):.7g}; problems 0 and {B - 1} against "
+            f"single nmf: costs {gap:.3g}, factors {gap_f:.3g} relative")
+    for div in ("euclidean", "kl"):
+        r1, r10 = out[f"encode {div}"]["res"], out[f"encode {div} cost_every=10"]["res"]
+        checks = [i for i in range(ENGINE_ITERS) if i == 0 or (i + 1) % 10 == 0]
+        if not (torch.equal(r1.H, r10.H)
+                and np.array_equal(r1.cost[:, checks], r10.cost[:, checks])):
+            raise AssertionError(f"encode {div}: cost_every=10 moved H or a check's cost")
+    # The batch's final cost (the sum over its problems) with bf16-stored
+    # V against f32; the worst single problem is printed beside it.
+    f32, bf16 = (out[f"batched euclidean {x}"]["res"].cost[:, -1].astype(np.float64)
+                 for x in ("f32", "bf16"))
+    rel = abs(bf16.sum() - f32.sum()) / f32.sum()
+    if not rel <= BF16_RTOL:
+        raise AssertionError(f"batched bf16 final cost {rel:.3g} from f32 > {BF16_RTOL}")
+    say(f"phase 9 cost_every=10 leaves H bit-identical; the bf16 batch's final cost "
+        f"{rel:.3g} from f32 (worst problem {np.max(np.abs(bf16 - f32) / f32):.3g})")
+    # Each engine's inner solve on device tensors, with no host sync: at
+    # full length under sync debug mode (which does not see every sync),
+    # then each at GATE_ITERS iterations (a few hundred launches, inside
+    # the launch queue, which blocks the host when full) queued behind a
+    # device sleep that must still be running when the solve returns.
+    hsp = torch.zeros(k, device="cuda")
+    W0n = W0 / torch.sqrt(torch.sum(W0 * W0, dim=1, keepdim=True))
+    Vb = Vs.bfloat16()
+
+    def solves(iters):
+        for div, V in (("euclidean", Vb), ("kl", Vs)):
+            yield lambda: tb._solve(tb._Spec(iters, EPS, div, 1, 10), V, W0n, H0)
+            yield lambda: tb._solve_encode(tb._EncSpec(iters, EPS, div, cost_every=10),
+                                           V, Wd, H0, hsp)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for solve in solves(ENGINE_ITERS):
+            solve()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    gate, queued_ms = torch.cuda.Event(), []
+    for solve in solves(GATE_ITERS):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        gate.record()
+        t0 = time.perf_counter()
+        solve()
+        queued_ms.append((time.perf_counter() - t0) * 1e3)
+        if gate.query():
+            raise AssertionError("a solve came back only after the device sleep ended")
+    torch.cuda.synchronize()
+    say(f"phase 9 nmf_batched and nmf_encode solves (bf16 euclidean, kl): "
+        f"{ENGINE_ITERS} iterations under set_sync_debug_mode('error'), and "
+        f"{GATE_ITERS} queued in {', '.join(f'{t:.1f}' for t in queued_ms)} ms "
+        "behind a device sleep still running: no host sync")
+    prof = profile_device_ms(torch, lambda: nmf_encode(
+        Vs, Wd, H_init=H0, divergence="kl", maxiter=ENGINE_ITERS), ENGINE_ITERS)
+    say(f"phase 9 profile encode kl: {json.dumps(prof)}")
+    summary = {name: {key: v for key, v in r.items() if key != "res"}
+               for name, r in out.items()}
+    summary["encode kl"]["idle_share"] = prof["idle_share"]
+    say(f"phase 9 {json.dumps(summary)}")
+
+
+def phase10_rank(torch, V_big):
+    import nmf_toolbox_tpu_torch.rank as rank
+    from nmf_toolbox_tpu_torch import estimate_rank_svd, nmf, nmf_multiseed, pick_rank
+    m, n, r = RANK_SWEEP
+    S, k = RANK_SEEDS, 16
+    rng = np.random.default_rng(0)
+    Wt = rng.gamma(2.0, 1.0, (m, r)).astype(np.float32)
+    Ht = rng.gamma(0.5, 1.0, (r, n)).astype(np.float32)
+    V = torch.from_numpy(Wt @ Ht + 0.01).cuda()
+    W0, H0 = (torch.from_numpy(rng.uniform(size=s).astype(np.float32)).cuda()
+              for s in ((S, m, k), (S, k, n)))
+    v_bytes = V.numel() * V.element_size()
+    summary = {}
+    for div in ("euclidean", "kl"):
+        run = lambda: nmf_multiseed(V, k, S, W_init=W0, H_init=H0,
+                                    maxiter=ENGINE_ITERS, divergence=div)
+        run()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, ms = wall_ms(torch, run)
+        peak = torch.cuda.max_memory_allocated() - base
+        _, ms = median_ms(torch, run)
+        refs = {s: nmf(V, k, W_init=W0[s], H_init=H0[s], maxiter=ENGINE_ITERS,
+                       tolerance=1e-30, divergence=div) for s in (0, S - 1)}
+        gap, gap_f = check_engine(f"multiseed {div}", res, torch, refs,
+                                  0.0 if div == "kl" else gram_floor(torch, V))
+        if div == "euclidean" and not peak < S * v_bytes / 4:
+            raise AssertionError(f"multiseed euclidean peak {peak} B: V copied per restart?")
+        summary[f"multiseed {div}"] = {"ms_per_call": ms, "ms_per_restart": ms / S,
+                                       "peak_mb": peak / 2 ** 20, "cost_gap": gap,
+                                       "factor_gap": gap_f}
+        say(f"phase 10 nmf_multiseed {div} {m}x{n} r{k} S{S}, {ENGINE_ITERS} "
+            f"iterations: {ms:.2f} ms/call, {ms / S:.2f} ms/restart, peak "
+            f"{peak / 2 ** 20:.1f} MiB over V's {v_bytes / 2 ** 20:.1f} MiB, "
+            f"restarts 0 and {S - 1} against single nmf: costs {gap:.3g}, "
+            f"factors {gap_f:.3g} relative")
+
+    scipy_s = []
+    metrics = rank._consensus_metrics
+
+    def timed_metrics(consensus):
+        t0 = time.perf_counter()
+        try:
+            return metrics(consensus)
+        finally:
+            scipy_s.append(time.perf_counter() - t0)
+
+    rank._consensus_metrics = timed_metrics
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel = pick_rank(V, ranks=RANK_CANDIDATES, n_seeds=S, maxiter=ENGINE_ITERS)
+        total = time.perf_counter() - t0
+    finally:
+        rank._consensus_metrics = metrics
+    if sel.recommended not in RANK_CANDIDATES or len(sel.stats) != len(RANK_CANDIDATES):
+        raise AssertionError(f"pick_rank recommended {sel.recommended}")
+    summary["pick_rank"] = {"seconds": total, "scipy_seconds": sum(scipy_s),
+                            "solve_seconds": total - sum(scipy_s),
+                            "recommended": sel.recommended,
+                            "cophenetic": [s.cophenetic for s in sel.stats]}
+    say(f"phase 10 pick_rank consensus ranks {RANK_CANDIDATES} S{S}: {total:.2f} s "
+        f"({total - sum(scipy_s):.2f} s solves and consensus, {sum(scipy_s):.2f} s "
+        f"scipy), recommended {sel.recommended}, cophenetic "
+        f"{[round(s.cophenetic, 4) for s in sel.stats]}")
+    del V, W0, H0, res, refs
+
+    mb, nb = V_big.shape
+    (rank_mem, curve_mem), ms_mem = wall_ms(torch, lambda: estimate_rank_svd(V_big))
+    host = V_big.cpu().numpy()
+    (rank_str, curve_str), ms_str = wall_ms(
+        torch, lambda: estimate_rank_svd(host, block_size=SVD_BLOCK))
+    del host
+    gap = float(np.max(np.abs(curve_mem - curve_str)))
+    if rank_mem != rank_str or not gap <= CURVE_ATOL:
+        raise AssertionError(f"estimate_rank_svd: rank {rank_mem} vs {rank_str} "
+                             f"streamed, curves {gap:.3g} apart")
+    summary["estimate_rank_svd"] = {"ms_in_memory": ms_mem, "ms_streamed": ms_str,
+                                    "rank": rank_mem, "curve_gap": gap}
+    say(f"phase 10 estimate_rank_svd {mb}x{nb}: in memory {ms_mem:.1f} ms, "
+        f"streamed from the host in blocks of {SVD_BLOCK} columns {ms_str:.1f} ms; "
+        f"rank {rank_mem} both ways, curves {gap:.3g} apart (energy of the first "
+        f"component {curve_mem[0]:.5f}, of all {len(curve_mem)} {curve_mem[-1]:.5f})")
+    say(f"phase 10 {json.dumps(summary)}")
+
 
 def main():
     import torch
@@ -686,6 +975,8 @@ def main():
     V = 0.05 + 0.95 * torch.rand((m, n), generator=g, device="cuda")
     phase7_hals(torch, nmf_hals, V)
     phase8_nmf_options(torch, nmf, V)
+    phase9_serving(torch)
+    phase10_rank(torch, V)
     del V
 
     def per_iter(name):

@@ -9,7 +9,9 @@ built with ``nvcc`` at first use; on CPU tensors their plain PyTorch
 versions run instead.
 """
 from .core import EPS, Result
-from .models import nmf, nmf_hals
+from .models import nmf, nmf_batched, nmf_encode, nmf_hals, nmf_multiseed
+from .rank import consensus_stability, estimate_rank_svd, pick_rank
 
-__all__ = ["EPS", "Result", "nmf", "nmf_hals"]
+__all__ = ["EPS", "Result", "nmf", "nmf_hals", "nmf_batched", "nmf_multiseed",
+           "nmf_encode", "pick_rank", "consensus_stability", "estimate_rank_svd"]
 __version__ = "1.1.0"  # the distribution's version (pyproject.toml)

@@ -106,6 +106,15 @@ def resolve_device(V, device) -> torch.device:
     return torch.device("cuda")
 
 
+def reject_mesh(cfg) -> None:
+    """``mesh=`` (sharding over devices) is not ported: every entry point
+    that the JAX package gives a mesh raises rather than run unsharded."""
+    if cfg.get("mesh") is not None:
+        raise NotImplementedError(
+            "mesh= is not ported to nmf_toolbox_tpu_torch yet "
+            "(ROADMAP queue 1 item 12, multi-GPU)")
+
+
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A tensor of ``dtype`` on ``device`` from a tensor or an array."""
     if torch.is_tensor(x):

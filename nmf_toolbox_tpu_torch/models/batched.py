@@ -1,0 +1,446 @@
+"""Batched NMF: many small problems, or many restarts of one, in one solve.
+
+PyTorch counterpart of the ``nmf_batched``, ``nmf_multiseed`` and
+``nmf_encode`` engines of ``nmf_toolbox_tpu/models/batched.py``.  Serving
+factorizes many small matrices (per-utterance spectrograms, per-user
+blocks) rather than one large one; rank selection restarts one matrix
+many times.  The JAX engines ``vmap`` the single-problem step under
+``lax.scan``; here each step is written on batched tensors — W (B, m, k),
+H (B, k, n), and V (B, m, n) or one (m, n) shared by every restart — so
+each product of an iteration is one batched matmul for all problems.
+
+The engines run a fixed iteration count with no stop rule (a converged
+problem keeps iterating harmlessly; MU is a fixed point) and return one
+cost trace per problem.  So the loop never reads the device: the (B,)
+objective of each check iteration stays there and the (B, iters) trace
+is fetched once at the end.  ``cost_every`` computes the objective only
+on the check iterations of ``ops/loop.is_check`` and carries it in
+between; the factor updates do not read it, so they stay bit-identical.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import (Result, as_list, as_tensor, common_scalars, merge_config,
+                    parse_cost_every, per_column, promote_per_source,
+                    reject_mesh, resolve_device, resolve_dtype, source_blocks,
+                    torch_dtype, uniform_init, unwrap_sources)
+from ..ops import divergence as dv
+from ..ops import loop as looplib
+from ..ops.gram import euclidean_cost_gram, sq_norm, vdot
+from ..ops.normalize import unit_l2_columns
+
+MATRIX = (-2, -1)  # the dimensions a per-problem sum runs over
+
+
+class _Spec(NamedTuple):
+    iters: int
+    eps: float
+    div: str = "euclidean"
+    inner: int = 1
+    cost_every: int = 1
+
+
+class _EncSpec(NamedTuple):
+    iters: int
+    eps: float
+    div: str = "euclidean"
+    alpha: float = 1.0
+    beta: float = 1.0
+    cost_every: int = 1
+
+
+def _v_ht(V, H):
+    """V @ H' for every problem.  A V shared by S restarts meets all of
+    them in one GEMM, (S*k, n) @ (n, m), so it is read once per product
+    and never copied S times."""
+    if V.ndim == 3:
+        return vdot(V, H.mT, V.dtype)
+    S, k, n = H.shape
+    return vdot(H.reshape(S * k, n), V.T, V.dtype).reshape(S, k, -1).mT
+
+
+def _wt_v(W, V):
+    """W' @ V for every problem; a shared V as in :func:`_v_ht`,
+    (S*k, m) @ (m, n)."""
+    if V.ndim == 3:
+        return vdot(W.mT, V, V.dtype)
+    S, m, k = W.shape
+    return vdot(W.mT.reshape(S * k, m), V, V.dtype).reshape(S, k, -1)
+
+
+def _euclid_step(V, v_sq, eps, inner):
+    """Gram-form euclid MU iteration on every problem at once (nmf.m:149-186
+    update structure, W-normalization gradient coupling included).
+    ``inner`` repeats each factor update reusing the V-dependent Grams
+    (accelerated MU, as ``nmf(method='gram', inner_iters=)``).  The
+    objective comes from the Grams the update already formed."""
+    def step(state):
+        W, H = state
+        HHt = H @ H.mT
+        VHt = _v_ht(V, H)
+        for _ in range(inner):
+            WG = W @ HHt
+            dneg = torch.sum(W * WG, dim=-2, keepdim=True)
+            dpos = torch.sum(W * VHt, dim=-2, keepdim=True)
+            W = W * ((VHt + W * dneg) / torch.clamp_min(WG + W * dpos, eps))
+            W = unit_l2_columns(W)
+        WtV = _wt_v(W, V)
+        WtW = W.mT @ W
+        for _ in range(inner):
+            H = H * (WtV / torch.clamp_min(WtW @ H, eps))
+        return (W, H), lambda: euclidean_cost_gram(v_sq, WtV, WtW, H, dim=MATRIX)
+    return step
+
+
+def _kl_step(V, eps):
+    """Field-form KL MU iteration on every problem, matching the single
+    solver's naive step (nmf.m:147-199 with the implicit ones field)."""
+    def step(state):
+        W, H = state
+        A = (V / (W @ H)) @ H.mT
+        h_sum = torch.sum(H, dim=-1)[..., None, :]  # ones(m, n) @ H'
+        dneg = torch.sum(W * h_sum, dim=-2, keepdim=True)
+        dpos = torch.sum(W * A, dim=-2, keepdim=True)
+        W = W * ((A + W * dneg) / torch.clamp_min(h_sum + W * dpos, eps))
+        W = unit_l2_columns(W)
+        w_sum = torch.sum(W, dim=-2)[..., :, None]  # W' @ ones(m, n)
+        H = H * ((W.mT @ (V / (W @ H))) / torch.clamp_min(w_sum, eps))
+        return (W, H), lambda: dv.cost("kl", V, W @ H, dim=MATRIX)
+    return step
+
+
+def _scan(step, state, iters, ce, cost_dtype):
+    """``iters`` iterations of ``step(state) -> (state, cost_fn)``; the (B,)
+    objective ``cost_fn()`` is computed on the check iterations of
+    ``cost_every=ce`` and carried in between.  Reads nothing from the
+    device.  Returns (state, costs (B, iters))."""
+    cols, last = [], None
+    for i in range(iters):
+        state, cost_fn = step(state)
+        if looplib.is_check(i, ce, iters):
+            last = cost_fn().to(cost_dtype)
+        cols.append(last)
+    return state, torch.stack(cols, dim=1)
+
+
+def _solve(spec: _Spec, V, W0, H0):
+    """The solve of ``nmf_batched`` (V (B, m, n)) and ``nmf_multiseed``
+    (V (m, n), shared) on device tensors, with no host sync.  Returns
+    (W, H, costs (B, iters)) on the device."""
+    if spec.div == "euclidean":
+        v_sq = sq_norm(V.to(W0.dtype), dim=MATRIX)  # once per problem
+        step = _euclid_step(V, v_sq, spec.eps, spec.inner)
+    else:
+        step = _kl_step(V, spec.eps)
+    cdt = torch.promote_types(W0.dtype, torch.float32)
+    with torch.no_grad():
+        (W, H), costs = _scan(step, (W0, H0), spec.iters, spec.cost_every, cdt)
+    return W, H, costs
+
+
+def _solve_encode(spec: _EncSpec, Vs, W, H0, hsp, Mw=None):
+    """H-only MU of every problem against ONE fixed dictionary W (m, k), on
+    device tensors, with no host sync.  Returns (H, costs (B, iters)).
+
+    Euclidean without weights runs in Gram space after a one-time W'V per
+    problem, so its iterations never touch V.  The field divergences
+    (kl / is / ab, the alpha = 0 dual included) and every weighted run
+    re-read V for the ratio fields each iteration (nmf.m:176-199), with
+    KL's ones-field denominator W'1 (nmf.m:184) hoisted out of the loop.
+    """
+    a, b, eps = spec.alpha, spec.beta, spec.eps
+    cdt = torch.promote_types(W.dtype, torch.float32)
+
+    def penalty(H):
+        """The H_sparsity cost term (nmf.m:216-218), per problem."""
+        return torch.sum(hsp * torch.sum(torch.abs(H), dim=-1), dim=-1)
+
+    if spec.div == "euclidean" and Mw is None:
+        v_sq = sq_norm(Vs.to(W.dtype), dim=MATRIX)
+        WtV = vdot(W.T, Vs, Vs.dtype)  # (B, k, n); the loop is V-free
+        WtW = W.T @ W
+
+        def step(H):
+            H = H * (WtV / torch.clamp_min(WtW @ H + hsp[:, None], eps))
+            return H, lambda: (euclidean_cost_gram(v_sq, WtV, WtW, H, dim=MATRIX)
+                               + penalty(H))
+    else:
+        kl_pos = torch.sum(W, dim=0)[:, None]  # W' @ ones(m, n), hoisted
+
+        def step(H):
+            phi_neg, phi_pos, power = dv.fields(spec.div, Vs, W @ H, a, b,
+                                                weights=Mw)
+            neg = dv.apply_power(W.T @ phi_neg, power)
+            pos = dv.apply_power(kl_pos if phi_pos is None else W.T @ phi_pos,
+                                 power)
+            H = H * (neg / torch.clamp_min(pos + hsp[:, None], eps))
+            return H, lambda: (dv.cost(spec.div, Vs, W @ H, a, b, weights=Mw,
+                                       dim=MATRIX) + penalty(H))
+
+    with torch.no_grad():
+        return _scan(step, H0, spec.iters, spec.cost_every, cdt)
+
+
+# ---------------------------------------------------------------------------
+# Validators (the JAX package's, without its mesh placement)
+# ---------------------------------------------------------------------------
+
+def _data_dtype_of(cfg, div, name):
+    """Validate data_dtype (bf16 V storage; euclid-only — the KL ratio
+    field needs V at compute precision, matching nmf()'s contract)."""
+    dd = cfg.get("data_dtype")
+    if dd is None:
+        return None
+    if div != "euclidean":
+        raise ValueError(f"{name}: data_dtype is only supported with "
+                         "the euclidean divergence")
+    return torch_dtype(dd)
+
+
+def _encode_weights_of(cfg, B, m, n, name, dtype, device):
+    """Validate the encode engine's optional per-entry weights: (m, n)
+    shared across the batch or (B, m, n) per problem; nonnegative and
+    NaN-free (weight 0 = missing entry).  Either shape broadcasts against
+    the batch."""
+    Mw = cfg.get("weights")
+    if Mw is None:
+        return None
+    Mw = as_tensor(Mw, dtype, device)
+    if tuple(Mw.shape) not in ((m, n), (B, m, n)):
+        raise ValueError(
+            f"{name}: weights must be (m, n) = {(m, n)} shared across the "
+            f"batch or (B, m, n) = {(B, m, n)} per problem; got {tuple(Mw.shape)}")
+    if bool(torch.any(Mw < 0) | torch.any(torch.isnan(Mw))):
+        raise ValueError(
+            "weights must be nonnegative and NaN-free; to down-weight or "
+            "drop an entry use weight 0 (nmf's weights contract)")
+    return Mw
+
+
+def _reject_encode_config(cfg, name):
+    """The encode engine fits H only, for a fixed iteration count; error
+    rather than silently ignore options that cannot apply (the CLI's
+    convention)."""
+    fixed_w = "the dictionary W is the positional argument and is always fixed"
+    msgs = {
+        "W_fixed": fixed_w,
+        "W_init": fixed_w,
+        "W_sparsity": fixed_w,
+        "H_fixed": "encoding fits H — with H also fixed there is nothing "
+                   "to solve",
+        "inner_iters": "accelerated MU repeats the W phase, which encode "
+                       "does not run",
+    }
+    for key, why in msgs.items():
+        if cfg.get(key) is not None:
+            raise ValueError(f"{name}: {key!r} does not apply — {why}")
+
+
+def _inner_of(cfg, div, name):
+    """Validate inner_iters (accelerated MU is euclid-Gram-only,
+    matching nmf()'s contract)."""
+    inner = int(cfg.get("inner_iters", 1) or 1)
+    if inner < 1:
+        raise ValueError("inner_iters must be >= 1")
+    if inner > 1 and div != "euclidean":
+        raise ValueError(
+            f"{name}: inner_iters > 1 (accelerated MU) requires the "
+            "euclidean divergence")
+    return inner
+
+
+def _euclid_or_kl(cfg, name):
+    div = dv.canon(cfg.get("divergence", "euclidean"))
+    if div not in ("euclidean", "kl"):
+        raise ValueError(
+            f"{name} supports divergence 'euclidean' or 'kl'; got "
+            f"{cfg.get('divergence')!r} (use the single-matrix nmf() for "
+            "the IS/AB families)")
+    return div
+
+
+def _inits(cfg, gen, shape, dtype, device, axis):
+    """W_init (B, m, k) and H_init (B, k, n), each given or uniform from
+    ``gen``, with W's columns at unit L2 (nmf.m:132-134); ``axis`` names
+    the leading axis in the shape error."""
+    B, m, n, k = shape
+    W0, H0 = cfg.get("W_init"), cfg.get("H_init")
+    W0 = uniform_init(gen, (B, m, k), dtype, device) if W0 is None else as_tensor(W0, dtype, device)
+    H0 = uniform_init(gen, (B, k, n), dtype, device) if H0 is None else as_tensor(H0, dtype, device)
+    if tuple(W0.shape) != (B, m, k) or tuple(H0.shape) != (B, k, n):
+        raise ValueError(
+            f"inits must carry a leading {axis} axis: W_init {(B, m, k)}, "
+            f"H_init {(B, k, n)}; got {tuple(W0.shape)}, {tuple(H0.shape)}")
+    return unit_l2_columns(W0), H0
+
+
+def _result(W, H, costs, maxiter):
+    return Result(fields=("W", "H", "cost"), W=W, H=H,
+                  cost=costs.cpu().numpy(), n_iters=maxiter, converged=False)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def nmf_batched(Vs, num_basis_elems: int, config: dict | None = None,
+                **kwargs):
+    """NMF over a batch Vs of shape (B, m, n).
+
+    Parameters: divergence ('euclidean' | 'kl' — KL is the spectrogram
+    serving objective), W_init (B, m, k), H_init (B, k, n), maxiter
+    (100), inner_iters (accelerated MU, euclid only), seed, dtype, eps,
+    data_dtype (bf16 V storage, euclid only), cost_every (int, default 1:
+    evaluate the objective trace every N iterations, carrying the last
+    value in between — the factor trajectory is bit-identical; for KL the
+    skipped evaluations drop the objective's (m, n) reconstruction and
+    log pass), device (where a NumPy Vs goes; default the CUDA card).
+    ``device_output`` is accepted and changes nothing: the factors stay
+    on the run's device anyway.  ``mesh`` raises ``NotImplementedError``.
+    Returns Result with W (B, m, k), H (B, k, n) tensors on the run's
+    device and cost (B, maxiter), NumPy — one trace per problem.
+    """
+    cfg = merge_config(config, kwargs)
+    reject_mesh(cfg)
+    div = _euclid_or_kl(cfg, "nmf_batched")
+    device = resolve_device(Vs, cfg.get("device"))
+    dtype = resolve_dtype(Vs, cfg.get("dtype"))
+    Vs = as_tensor(Vs, dtype, device)
+    if Vs.ndim != 3:
+        raise ValueError(f"nmf_batched expects (B, m, n); got {tuple(Vs.shape)}")
+    B, m, n = Vs.shape
+    k = int(num_basis_elems)
+    maxiter, _, eps, gen = common_scalars(cfg)
+    W0, H0 = _inits(cfg, gen, (B, m, n, k), dtype, device, "batch")
+    dd = _data_dtype_of(cfg, div, "nmf_batched")
+    if dd is not None:
+        Vs = Vs.to(dd)  # storage dtype; factors stay at compute dtype
+    spec = _Spec(maxiter, eps, div, _inner_of(cfg, div, "nmf_batched"),
+                 parse_cost_every(cfg))
+    return _result(*_solve(spec, Vs, W0, H0), maxiter)
+
+
+def nmf_multiseed(V, num_basis_elems: int, n_seeds: int,
+                  config: dict | None = None, **kwargs):
+    """NMF of ONE matrix from ``n_seeds`` random restarts.
+
+    All restarts run as one batched solve with V shared: each product
+    that reads V is one GEMM over every restart (``_v_ht``, ``_wt_v``),
+    so V is read once per product and never copied S times.  This is the
+    engine of consensus rank selection (rank.py).  Parameters: divergence
+    ('euclidean' | 'kl' — Brunet 2004's consensus method is classically
+    KL), maxiter (100), inner_iters (accelerated MU, euclid only), seed,
+    dtype, eps, data_dtype (euclid only), W_init/H_init with a leading
+    (S,) axis, device; ``device_output`` changes nothing and ``mesh``
+    raises ``NotImplementedError``.  Returns Result with W (S, m, k),
+    H (S, k, n) tensors on the run's device and cost (S, maxiter), NumPy.
+    """
+    cfg = merge_config(config, kwargs)
+    reject_mesh(cfg)
+    div = _euclid_or_kl(cfg, "nmf_multiseed")
+    device = resolve_device(V, cfg.get("device"))
+    dtype = resolve_dtype(V, cfg.get("dtype"))
+    V = as_tensor(V, dtype, device)
+    if V.ndim != 2:
+        raise ValueError(f"nmf_multiseed expects (m, n); got {tuple(V.shape)}")
+    m, n = V.shape
+    k = int(num_basis_elems)
+    S = int(n_seeds)
+    if S < 1:
+        raise ValueError(f"n_seeds must be >= 1; got {n_seeds}")
+    maxiter, _, eps, gen = common_scalars(cfg)
+    W0, H0 = _inits(cfg, gen, (S, m, n, k), dtype, device, "seed")
+    dd = _data_dtype_of(cfg, div, "nmf_multiseed")
+    if dd is not None:
+        V = V.to(dd)  # storage dtype; factors stay at compute dtype
+    spec = _Spec(maxiter, eps, div, _inner_of(cfg, div, "nmf_multiseed"))
+    return _result(*_solve(spec, V, W0, H0), maxiter)
+
+
+def nmf_encode(Vs, W, config: dict | None = None, **kwargs):
+    """Encode a batch Vs (B, m, n) against ONE frozen dictionary W (m, k).
+
+    The deployment half of serving: ``nmf()`` trains the dictionary once;
+    this runs the H-only multiplicative updates of all B incoming
+    matrices as one batched solve.  Per-problem trajectories are exactly
+    ``nmf(V_i, k, W_init=W, W_fixed=True)`` (nmf.m:51-60), including the
+    entry unit-L2 column normalization of W (nmf.m:132-134; the identity
+    for a dictionary ``nmf()`` trained).  Euclidean iterations never
+    touch V: after a one-time W'V per problem each step is a (k, k) x
+    (k, n) Gram-space update.
+
+    Parameters: divergence ('euclidean' | 'kl' | 'is' | 'ab', the alpha =
+    0 AB dual included), alpha/beta (AB), H_init (B, k, n) or a
+    per-source list, H_sparsity (scalar or per source: L1 penalty on H),
+    weights ((m, n) shared or (B, m, n) per problem, nonnegative;
+    weight 0 marks a missing entry), maxiter (100), seed, dtype, eps,
+    data_dtype (bf16 V storage, euclid only, not with weights),
+    cost_every (as in :func:`nmf_batched`; for the field divergences the
+    skipped evaluations drop the objective's (m, n) reconstruction and
+    divergence pass), device; ``device_output`` changes nothing and
+    ``mesh`` raises ``NotImplementedError``.  W may be a LIST of
+    per-source dictionaries (cell-array semantics, nmf.m:114-116): they
+    concatenate along the basis axis and W/H come back as per-source
+    lists.  Returns Result with W (m, k, the normalized dictionary) and
+    H (B, k, n) tensors on the run's device and cost (B, maxiter), NumPy.
+    """
+    cfg = merge_config(config, kwargs)
+    reject_mesh(cfg)
+    div = dv.canon(cfg.get("divergence", "euclidean"))
+    alpha = float(cfg.get("alpha", 1.0))
+    beta = float(cfg.get("beta", 1.0))
+    if div == "ab" and alpha == 0.0 and beta == 0.0:
+        raise ValueError("alpha = 0 and beta = 0 is not supported at this time.")
+    _reject_encode_config(cfg, "nmf_encode")
+    device = resolve_device(Vs, cfg.get("device"))
+    dtype = resolve_dtype(Vs, cfg.get("dtype"))
+    Vs = as_tensor(Vs, dtype, device)
+    if Vs.ndim != 3:
+        raise ValueError(f"nmf_encode expects Vs of shape (B, m, n); got "
+                         f"{tuple(Vs.shape)} (encode a single matrix with "
+                         "nmf(V, k, W_init=W, W_fixed=True))")
+    B, m, n = Vs.shape
+    w_list, w_was_seq = as_list(W)
+    w_list = [as_tensor(w, dtype, device) for w in w_list]
+    S = len(w_list)
+    for s, w in enumerate(w_list):
+        if w.ndim != 2 or w.shape[0] != m:
+            raise ValueError(f"dictionary W[{s}] must be (m, k) = ({m}, k); "
+                             f"got {tuple(w.shape)}")
+    ks = [w.shape[1] for w in w_list]
+    blocks = source_blocks(ks)
+    W = unit_l2_columns(torch.cat(w_list, dim=1))  # nmf.m:132-134
+    k = W.shape[1]
+    maxiter, _, eps, gen = common_scalars(cfg)
+
+    H0 = cfg.get("H_init")
+    if H0 is None:
+        H0 = uniform_init(gen, (B, k, n), dtype, device)
+    elif isinstance(H0, (list, tuple)):
+        if len(H0) != S:
+            raise ValueError(f"Requested {S} sources. Given {len(H0)} "
+                             "initial encoding matrices.")
+        H0 = torch.cat([as_tensor(h, dtype, device) for h in H0], dim=1)
+    H0 = as_tensor(H0, dtype, device)
+    if tuple(H0.shape) != (B, k, n):
+        raise ValueError(f"H_init must be {(B, k, n)}; got {tuple(H0.shape)}")
+    h_sp = [max(float(v), 0.0) for v in
+            promote_per_source(cfg.get("H_sparsity"), S, "H_sparsity", 0.0)]
+    hsp = per_column(h_sp, ks, dtype, device)
+
+    dd = _data_dtype_of(cfg, div, "nmf_encode")
+    if dd is not None:
+        if cfg.get("weights") is not None:
+            raise ValueError("nmf_encode: data_dtype is not supported with "
+                             "weights= (the weighted fields read V at "
+                             "compute precision, matching nmf()'s contract)")
+        Vs = Vs.to(dd)  # storage dtype; factors stay at compute dtype
+    Mw = _encode_weights_of(cfg, B, m, n, "nmf_encode", dtype, device)
+
+    spec = _EncSpec(maxiter, eps, div, alpha, beta, parse_cost_every(cfg))
+    H, costs = _solve_encode(spec, Vs, W, H0, hsp, Mw)
+    return _result(unwrap_sources(W, blocks, 1, w_was_seq),
+                   unwrap_sources(H, blocks, 1, w_was_seq), costs, maxiter)

@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from ..core import (Result, as_tensor, common_scalars, merge_config,
-                    prepare_weights, resolve_device, resolve_dtype,
-                    uniform_init)
+                    prepare_weights, reject_mesh, resolve_device,
+                    resolve_dtype, uniform_init)
 from ..ops import loop as looplib
 from ..ops.gram import euclidean_cost_gram, sq_norm
 from ..ops.normalize import unit_l2_columns
@@ -159,10 +159,7 @@ def nmf_hals(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     device) and ``beta``, ``beta_bar``, ``prev_err`` (floats).
     """
     cfg = merge_config(config, kwargs)
-    if cfg.get("mesh") is not None:
-        raise NotImplementedError(
-            "mesh= is not ported to nmf_toolbox_tpu_torch yet "
-            "(ROADMAP queue 1 item 13 (multi-GPU))")
+    reject_mesh(cfg)
     device = resolve_device(V, cfg.get("device"))
     dtype = resolve_dtype(V, cfg.get("dtype"))
     V = as_tensor(V, dtype, device)

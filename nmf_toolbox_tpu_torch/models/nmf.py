@@ -29,11 +29,12 @@ import torch
 from ..core import (Result, as_list, as_tensor, common_scalars, default_h_init,
                     default_w_init, fixed_col_mask, merge_config,
                     parse_cost_every, per_column, prepare_weights,
-                    promote_inits, promote_per_source, resolve_device,
-                    resolve_dtype, source_blocks, torch_dtype, unwrap_sources)
+                    promote_inits, promote_per_source, reject_mesh,
+                    resolve_device, resolve_dtype, source_blocks, torch_dtype,
+                    unwrap_sources)
 from ..ops import divergence as dv
 from ..ops import loop as looplib
-from ..ops.gram import euclidean_cost_gram, sq_norm
+from ..ops.gram import euclidean_cost_gram, sq_norm, vdot
 from ..ops.normalize import unit_l2_columns
 from ..utils.init import nndsvd, seedable
 
@@ -86,18 +87,6 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None):
     if spec.method == "gram":
         fdt = wsp.dtype  # the factors' dtype
         v_sq = sq_norm(V.to(fdt))
-
-        def vdot(A, B):
-            """A @ B with V (one of them) in its storage dtype: a bf16 or
-            f16 V takes low-precision inputs and accumulates in f32."""
-            A, B = A.to(V.dtype), B.to(V.dtype)
-            if V.dtype.itemsize >= 4:
-                return A @ B
-            if V.is_cuda:
-                return torch.mm(A, B, out_dtype=torch.float32)
-            # The CPU build has no out_dtype overload: upcast the
-            # low-precision operands (exact) and multiply in f32.
-            return A.float() @ B.float()
     elif spec.method == "fused":
         from ..ops.kernels import fused as fk
         V = V.contiguous()  # the kernels take row-major operands
@@ -120,7 +109,7 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None):
         W, H = carry[0], carry[1]
         if w_any:
             HHt = H @ H.T
-            VHt = vdot(V, H.T)                     # [mnk]
+            VHt = vdot(V, H.T, V.dtype)            # [mnk]
             # Accelerated MU (Gillis & Glineur 2012, arXiv:1107.5194):
             # VHt and HHt depend only on V and the fixed H, so the W step
             # can repeat `inner` times reusing them.  inner=1 is the
@@ -130,7 +119,7 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None):
                 dneg = torch.sum(W * WG, dim=0)    # diag(Hs V_hat' Ws)
                 dpos = torch.sum(W * VHt, dim=0)   # diag(Hs V' Ws)
                 W = update_w(W, VHt + W * dneg[None, :], WG + W * dpos[None, :])
-        WtV = vdot(W.T, V)                         # [mnk]
+        WtV = vdot(W.T, V, V.dtype)                # [mnk]
         WtW = W.T @ W
         if h_any:
             for _ in range(spec.inner):
@@ -228,19 +217,17 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
 
     ``device``: where a NumPy ``V`` goes (default: the CUDA card; with no
     card the call raises, so pass ``"cpu"`` to run on the CPU); a tensor
-    ``V`` runs on its own device.  ``callback`` and ``mesh`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``V`` runs on its own device.  ``callback``: called as
+    ``callback(i, cost)`` after every iteration, with the carried cost on
+    the iterations ``cost_every`` skips (see ``ops/loop.run``); the run
+    then reads the device once per iteration.  ``mesh`` is not ported yet
+    and raises ``NotImplementedError``.
 
     Returns a :class:`Result` unpacking as (W, H, cost): ``W`` and ``H``
     tensors on the run's device, ``cost`` a NumPy array.
     """
     cfg = merge_config(config, kwargs)
-    for key, item in (("callback", "queue 1 item 2"),
-                      ("mesh", "queue 1 item 13 (multi-GPU)")):
-        if cfg.get(key) is not None:
-            raise NotImplementedError(
-                f"{key}= is not ported to nmf_toolbox_tpu_torch yet "
-                f"(ROADMAP {item})")
+    reject_mesh(cfg)
     device = resolve_device(V, cfg.get("device"))
     dtype = resolve_dtype(V, cfg.get("dtype"))
     V = as_tensor(V, dtype, device)
@@ -273,7 +260,7 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
                              "weighted fields are nonlinear in W @ H)")
     if method == "auto":
         # The JAX package's choice, kept until the H100 measurement of
-        # ROADMAP queue 1 item 3 says otherwise.
+        # ROADMAP queue 1 item 1 says otherwise.
         method = "gram" if div == "euclidean" else "naive"
     if method not in ("gram", "naive", "fused"):
         raise ValueError(f"unknown method {method!r}; expected 'auto', "
@@ -364,7 +351,7 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
         step = _make_step(spec, V, wsp, hsp, weights)
         out = looplib.run(step, looplib.cadence_state((W0, H0), ce, dtype),
                           maxiter, tolerance, cost_dtype=dtype,
-                          cost_every=ce)
+                          cost_every=ce, callback=cfg.get("callback"))
 
     W, H = out.state[0], out.state[1]
     return Result(

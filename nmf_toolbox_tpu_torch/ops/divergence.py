@@ -153,36 +153,38 @@ def apply_power(x, power):
     return x if power is None or power == 1.0 else x ** power
 
 
-def _weighted_sum(term, weights):
-    """sum(weights * term) with zero-weight entries hard-zeroed FIRST —
-    a masked-out entry may carry NaN/Inf in its term (e.g. 0*log(0)) and
-    0 * NaN is NaN."""
+def _weighted_sum(term, weights, dim=None):
+    """sum(weights * term) over ``dim`` (all of it by default) with
+    zero-weight entries hard-zeroed FIRST — a masked-out entry may carry
+    NaN/Inf in its term (e.g. 0*log(0)) and 0 * NaN is NaN."""
     if weights is None:
-        return torch.sum(term)
+        return torch.sum(term, dim=dim)
     return torch.sum(torch.where(weights > 0, weights * term,
-                                 torch.zeros((), dtype=term.dtype, device=term.device)))
+                                 torch.zeros((), dtype=term.dtype, device=term.device)),
+                     dim=dim)
 
 
 def cost(divergence: str, V, V_hat, alpha: float = 1.0, beta: float = 1.0,
-         mask=None, weights=None):
+         mask=None, weights=None, dim=None):
     """Per-iteration cost (nmf.m:206-215; identical in cnmf.m:239-248 and
     constrainednmf.m:241-250).  ``mask`` restricts the elementwise summand
     to the valid region; ``weights`` scales it per entry (see
-    :func:`fields`)."""
+    :func:`fields`); ``dim`` sums over those dimensions only (a batch of
+    problems gets one cost each), over everything by default."""
     d = canon(divergence)
     if d == "euclidean":
         r = V - V_hat
-        return 0.5 * _weighted_sum(r * r, weights)
+        return 0.5 * _weighted_sum(r * r, weights, dim)
     if d == "kl":
         term = V * torch.log(V / V_hat) - V + V_hat
-        return _weighted_sum(_masked(term, mask), weights)
+        return _weighted_sum(_masked(term, mask), weights, dim)
     if d == "is":
         term = torch.log(V_hat / V) + V / V_hat - 1.0
-        return _weighted_sum(_masked(term, mask), weights)
+        return _weighted_sum(_masked(term, mask), weights, dim)
     a, b = alpha, beta
     # MATLAB 1/0 == Inf: with alpha*beta == 0 the reference's AB cost is
     # +-Inf (nmf.m:214); the convergence rule then simply never fires.
     factor = -1.0 / (a * b) if a * b != 0.0 else -math.inf
     term = (V ** a * V_hat ** b
             - (a * V ** (a + b) + b * V_hat ** (a + b) + b) / (a + b))
-    return factor * _weighted_sum(_masked(term, mask), weights)
+    return factor * _weighted_sum(_masked(term, mask), weights, dim)

@@ -21,20 +21,41 @@ def pos_neg_split(A):
     return 0.5 * (absA + A), 0.5 * (absA - A)
 
 
-def sq_norm(V):
-    """||V||_F^2 (precomputed once; constant across iterations)."""
-    return torch.sum(V * V)
+def vdot(A, B, vdt):
+    """A @ B where one operand is V in its storage dtype ``vdt``: a bf16 or
+    f16 V takes low-precision operands and accumulates in f32
+    (``data_dtype``); a 2-D operand meets a 3-D batch by broadcasting."""
+    A, B = A.to(vdt), B.to(vdt)
+    if vdt.itemsize >= 4:
+        return A @ B
+    if A.is_cuda:
+        if A.ndim == B.ndim == 2:
+            return torch.mm(A, B, out_dtype=torch.float32)
+        batch = max(x.shape[0] for x in (A, B) if x.ndim == 3)
+        A, B = (x.expand(batch, *x.shape[-2:]) for x in (A, B))
+        return torch.bmm(A, B, out_dtype=torch.float32)
+    # The CPU build has no out_dtype overload: upcast the low-precision
+    # operands (exact) and multiply in f32.
+    return A.float() @ B.float()
 
 
-def euclidean_cost_gram(v_sq, WtV, WtW, H):
+def sq_norm(V, dim=None):
+    """||V||_F^2 (precomputed once; constant across iterations); per
+    matrix of a batch with ``dim=(-2, -1)``."""
+    return torch.sum(V * V, dim=dim)
+
+
+def euclidean_cost_gram(v_sq, WtV, WtW, H, dim=None):
     """0.5*||V - W H||^2 = 0.5*(||V||^2 - 2<W'V, H> + <W'W H, H>).
 
     All operands are k-by-n / k-by-k; no m-by-n intermediate.  Clamped at
     zero: the identity cancels catastrophically once the true residual
     nears the dtype's precision floor, while the reference's residual form
-    (nmf.m:208) is nonnegative by construction.
+    (nmf.m:208) is nonnegative by construction.  ``dim=(-2, -1)`` gives
+    one cost per problem of a batch.
     """
-    c = 0.5 * (v_sq - 2.0 * torch.sum(WtV * H) + torch.sum((WtW @ H) * H))
+    c = 0.5 * (v_sq - 2.0 * torch.sum(WtV * H, dim=dim)
+               + torch.sum((WtW @ H) * H, dim=dim))
     return torch.clamp_min(c, 0.0)
 
 

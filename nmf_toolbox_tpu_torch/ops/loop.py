@@ -15,8 +15,10 @@ it is a Python loop over eager steps: the cost buffer lives on the
 device, the stop rule is evaluated there in the cost dtype, and its one
 boolean is read on the host only on check iterations — every iteration
 at ``cost_every=1``, the cadence's check iterations otherwise — so a run
-pays one host sync per check.  ``n_iters``, ``stopped``, ``terminated``
-and the trim rules are those of the JAX loop.
+pays one host sync per check.  A run with a ``callback`` reads the cost
+(and, on a check, the boolean with it) once per iteration instead.
+``n_iters``, ``stopped``, ``terminated`` and the trim rules are those of
+the JAX loop.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ def is_check(i: int, ce: int, maxiter: int) -> bool:
 
 def run(step_fn: Callable, init_state, maxiter: int, tolerance,
         *, offset: int = 0, initial_cost=None, inclusive: bool = False,
-        cost_dtype=None, cost_every: int = 1) -> LoopOut:
+        cost_dtype=None, cost_every: int = 1,
+        callback: Callable | None = None) -> LoopOut:
     """Run the MU loop.
 
     ``step_fn(state, i) -> (state, cost, terminate)`` performs one full
@@ -55,6 +58,12 @@ def run(step_fn: Callable, init_state, maxiter: int, tolerance,
     the stop rule to <= (lnmf.m:89).  ``cost_every`` must match the
     cadence of the step's :func:`cost_cadence` tail: when > 1 the stop
     rule is checked only on iterations that computed a fresh objective.
+
+    ``callback(i, cost)`` (an int and a float) runs once per executed
+    iteration, after the step and before the stop rule is read, as the
+    JAX loop's ``jax.debug.callback`` does.  With ``cost_every > 1`` a
+    non-check iteration passes the carried cost, the value its trace
+    entry holds.
     """
     state0 = init_state[0] if isinstance(init_state, (tuple, list)) else init_state
     device = state0.device
@@ -72,13 +81,20 @@ def run(step_fn: Callable, init_state, maxiter: int, tolerance,
         state, c, term = step_fn(state, i)
         terminated = bool(term)
         buf[i + offset] = c
+        c, trigger = buf[i + offset], None
         if i >= 1 and not terminated and is_check(i, ce, maxiter):
-            c = buf[i + offset]
             prev = buf[max(i + offset - 1, 0)]
             if inclusive:
                 trigger = (c <= prev) & (prev - c <= tol)
             else:
                 trigger = (c < prev) & (prev - c < tol)
+        if callback is not None:
+            # One read brings the cost and, on a check, the trigger.
+            read = (c[None] if trigger is None
+                    else torch.stack((c, trigger.to(cost_dtype)))).tolist()
+            callback(i, read[0])
+            stopped = trigger is not None and bool(read[1])
+        elif trigger is not None:
             stopped = bool(trigger)  # the one host sync of a check iteration
         i += 1
     return LoopOut(state, buf, i, stopped, terminated)

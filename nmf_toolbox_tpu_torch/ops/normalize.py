@@ -7,8 +7,9 @@ import torch
 
 
 def unit_l2_columns(W):
-    """W * diag(1/||w_k||_2) — nmf.m:133,169; cmfwisa.m:154,193."""
-    return W / torch.sqrt(torch.sum(W * W, dim=0, keepdim=True))
+    """W * diag(1/||w_k||_2) — nmf.m:133,169; cmfwisa.m:154,193.  A batch
+    (B, m, k) normalizes each problem's columns."""
+    return W / torch.sqrt(torch.sum(W * W, dim=-2, keepdim=True))
 
 
 def unit_sum_columns(X):

@@ -98,7 +98,8 @@ def test_import_builds_nothing_and_never_imports_jax():
         "import sys\n"
         "import nmf_toolbox_tpu_torch, nmf_toolbox_tpu_torch.interop\n"
         "from nmf_toolbox_tpu_torch.ops.kernels import _build, fused, fused_dma\n"
-        "from nmf_toolbox_tpu_torch.models import hals\n"
+        "from nmf_toolbox_tpu_torch.models import batched, hals\n"
+        "from nmf_toolbox_tpu_torch import rank\n"
         "from nmf_toolbox_tpu_torch.utils import init\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"

@@ -186,5 +186,5 @@ def test_guards_raise_value_error(cfg):
 
 def test_mesh_not_ported():
     V = np.random.default_rng(8).uniform(0.1, 1, (20, 20))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
         tt.nmf_hals(V, 3, maxiter=2, mesh=object(), **CPU)

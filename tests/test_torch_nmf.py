@@ -220,11 +220,36 @@ def test_fused_k_limit():
                     **(CPU if pkg is tt else {}))
 
 
-@pytest.mark.parametrize("cfg", [dict(mesh=object()), dict(callback=print)])
+@pytest.mark.parametrize("cfg", [dict(mesh=object())])
 def test_not_ported_options_raise(cfg):
     V = np.random.default_rng(8).uniform(0.1, 1, (20, 20))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.nmf(V, 3, maxiter=2, **cfg, **CPU)
+
+
+@pytest.mark.parametrize("cost_every", [1, 3])
+@pytest.mark.parametrize("stops", [True, False])
+def test_callback_calls_match_jax(cost_every, stops):
+    """callback(i, cost) once per executed iteration, the carried cost on
+    the iterations cost_every skips, as the JAX loop's debug callback."""
+    V, W0, H0 = _problem(4)
+    kw = dict(W_init=W0, H_init=H0, divergence="kl", cost_every=cost_every,
+              **(dict(maxiter=300, tolerance=2e-2) if stops
+                 else dict(maxiter=12, tolerance=1e-30)))
+    calls = {"t": [], "j": []}
+    t = tt.nmf(V, 5, callback=lambda i, c: calls["t"].append((int(i), float(c))),
+               **kw, **CPU)
+    j = jt.nmf(V, 5, callback=lambda i, c: calls["j"].append((int(i), float(c))),
+               **kw)
+    assert t.converged == j.converged == stops
+    assert_parity(t, j)
+    got, want = np.array(calls["t"]), np.array(sorted(calls["j"]))
+    assert got.shape == want.shape == (t.n_iters, 2)
+    assert np.array_equal(got[:, 0], np.arange(t.n_iters))
+    assert np.array_equal(got[:, 0], want[:, 0])
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=RTOL, atol=0)
+    # the trace holds what the callback saw, carried entries included
+    np.testing.assert_array_equal(got[:, 1], t.cost[:t.n_iters])
 
 
 def test_unknown_method_raises():
