@@ -79,7 +79,38 @@ without printing the last line:
    of V), ``pick_rank`` over ranks 8, 16, 24, 32 with its seconds split
    into the solves and scipy's linkage, and ``estimate_rank_svd`` on
    phase 4's 100 000x10 000 V in memory on the card and streamed from a
-   host copy in blocks of 2000 columns: same rank, curves within 1e-4.
+   host copy in blocks of 2000 columns: same rank, curves within 1e-4;
+11. streaming at phase 7's 100 000x10 000 r200 f32 V, copied to the host
+   once: ``nmf_streaming`` (blocks of 2048 columns, 5 epochs, 3 inner
+   encodings) from the host array and from a ``.npy`` memmap of it
+   written to a temporary directory (write time printed), which must
+   give the same W and cost trace bit for bit; finite epoch costs, the
+   last no higher than the first; the device memory it adds (peak over
+   the call, ``max_memory_allocated``) below 2.5 GB while V is 4.0 GB.
+   ``nmf_encode_streaming`` KL, 20 iterations, of the memmap into a
+   (k, n) memmap against the trained W, and in-memory ``nmf_encode`` of
+   V from the same H_init: cost traces within rtol 1e-4, H within 1e-3
+   of its largest entry.  Prints s/epoch, GB/s of V streamed, the host
+   gather and the pinned and pageable host-to-device GB/s of one block,
+   and ``profile_device_ms``' split and idle share of one epoch;
+12. the Gram/MU family at benchmarks/gram_family_marginal.py:57's
+   100 000x10 000 r200 f32, on phase 7's V: ``lnmf``, ``seminmf``,
+   ``convexnmf`` (non-negative V: the 3-product step), ``chnmf`` (S = V's
+   first 400 columns) and KL ``constrainednmf`` (half the columns labeled
+   in 10 classes), ms per iteration from calls of 2 and 22 iterations;
+   seconds of the one-time Grams (V'V; S'V with S'S) and of the default
+   inits (``kmeans_indicator_h`` at k = 200, ``convex_hull_anchors`` on
+   its randomized path, with the anchor count p); ``symnmf`` on a planted
+   20-block similarity of n = 10 000 at k = 20 (ms per iteration; after
+   300 iterations its row-wise argmax matches the blocks on >= 95 % of
+   the points under the best matching). Checks: every run finite with all
+   its iterations; the six goldens of tests/goldens on the card in f64 at
+   tests/test_goldens.py's tolerances (factors atol 1e-9, costs rtol
+   1e-9, constrainednmf's A exact); each solver in f32 on the card (NumPy
+   inputs, no ``device=``) within 1e-4 relative of the port's f64 run on
+   the CPU, cost traces at 1000x500 r25 over 50 iterations (symnmf on a
+   planted 25-block similarity of n = 500). The kernel counters, set to 0 before phase 11, are
+   printed after phase 12: this slice's path runs no kernel.
 
 Then a JSON line of per-kernel results and, last, the device line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
@@ -125,6 +156,18 @@ SERVING = (256, 257, 400, 16)  # B, m, n, k: benchmarks/batched_serving_tpu.py:3
 RANK_SWEEP = (2049, 4000, 12)  # m, n, true rank: benchmarks/rank_sweep_tpu.py:50-56
 RANK_SEEDS, RANK_CANDIDATES = 16, (8, 16, 24, 32)
 SVD_BLOCK = 2000      # columns per block of the streamed rank estimate
+STREAM_BLOCK, STREAM_EPOCHS, STREAM_INNER = 2048, 5, 3  # phase 11's nmf_streaming
+STREAM_PEAK = 2.5e9   # bytes of device memory nmf_streaming may add (V is 4.0 GB)
+ENCODE_ITERS = 20     # phase 11's KL encodes
+FAMILY_ITERS = 20     # phase 12's timed iterations per solver
+CHNMF_ANCHORS = 400   # phase 12's S = V's first columns
+LABEL_CLASSES = 10    # phase 12's constrainednmf: half of V's columns labeled
+SYM = (10_000, 20)    # phase 12's symnmf: n, k of a planted block similarity
+SYM_RECOVERY_ITERS, SYM_ACCURACY = 300, 0.95  # 20 iterations do not recover it
+SMALL, SMALL_ITERS = (1000, 500, 25), 50  # phase 12's f32 card vs f64 CPU runs
+F32_RTOL = 1e-4       # f32 on the card vs f64 on the CPU, cost traces
+GOLDEN_ATOL = GOLDEN_RTOL = 1e-9  # tests/test_goldens.py, f64
+NEVER = 1e-30         # a tolerance no stop rule meets (0 falls back to 1e-3)
 SLEEP_CYCLES = 10 ** 9  # ~0.5 s of device clock ahead of each gated solve
 GATE_ITERS = 10       # iterations of a gated solve (its launches fit the queue)
 REL_TOL = 1e-4        # tests/test_pallas.py, f32 path
@@ -946,6 +989,277 @@ def phase10_rank(torch, V_big):
     say(f"phase 10 {json.dumps(summary)}")
 
 
+def phase11_streaming(torch, V):
+    """nmf_streaming and nmf_encode_streaming from a host copy of V and
+    from a .npy memmap of it, against each other and the in-memory encode;
+    the host-to-device floor of one block; one epoch's device split."""
+    import os
+    import tempfile
+    from nmf_toolbox_tpu_torch import nmf_encode, nmf_encode_streaming, nmf_streaming
+    m, n = V.shape
+    k = GRAM[2]
+    host = V.cpu().numpy()
+    gb = host.nbytes / 1e9
+    kw = dict(block_size=STREAM_BLOCK, epochs=STREAM_EPOCHS, inner_iters=STREAM_INNER,
+              tolerance=NEVER)
+
+    # The floor: one block gathered into pinned memory, then copied from
+    # pinned and from pageable memory.
+    block_gb = m * STREAM_BLOCK * 4 / 1e9
+    pinned = torch.empty((m, STREAM_BLOCK), pin_memory=True)
+    t0 = time.perf_counter()
+    np.copyto(pinned.numpy(), host[:, :STREAM_BLOCK])
+    gather_s = time.perf_counter() - t0
+    pageable = torch.from_numpy(np.ascontiguousarray(host[:, :STREAM_BLOCK]))
+    _, pinned_ms = median_ms(torch, lambda: pinned.to("cuda", non_blocking=True))
+    _, pageable_ms = median_ms(torch, lambda: pageable.to("cuda"))
+    del pinned, pageable
+    say(f"phase 11 one block {m}x{STREAM_BLOCK} ({block_gb:.2f} GB): host gather "
+        f"{block_gb / gather_s:.2f} GB/s, host to device pinned "
+        f"{block_gb / pinned_ms * 1e3:.2f} GB/s, pageable {block_gb / pageable_ms * 1e3:.2f} GB/s")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, ms = wall_ms(torch, lambda: nmf_streaming(host, k, **kw))
+    peak = torch.cuda.max_memory_allocated() - base
+    c = np.asarray(res.cost)
+    if (res.n_iters != STREAM_EPOCHS or not np.all(np.isfinite(c)) or not c[-1] <= c[0]
+            or res.W.device.type != "cuda"):
+        raise AssertionError(f"nmf_streaming: n_iters {res.n_iters}, cost {c}, W on {res.W.device}")
+    if not peak < STREAM_PEAK:
+        raise AssertionError(f"nmf_streaming added {peak / 1e9:.2f} GB of device memory")
+    say(f"phase 11 nmf_streaming {m}x{n} r{k} from a host array, block {STREAM_BLOCK}, "
+        f"{STREAM_EPOCHS} epochs: {ms / 1e3 / STREAM_EPOCHS:.3f} s/epoch, "
+        f"{gb * STREAM_EPOCHS / ms * 1e3:.2f} GB/s of V streamed, peak device memory "
+        f"{peak / 1e9:.3f} GB beside V's {gb:.2f}, cost {c[0]:.7g} -> {c[-1]:.7g}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        np.save(os.path.join(tmp, "V.npy"), host)
+        write_s = time.perf_counter() - t0
+        Vmm = np.load(os.path.join(tmp, "V.npy"), mmap_mode="r")
+        res_mm, ms_mm = wall_ms(torch, lambda: nmf_streaming(Vmm, k, **kw))
+        if not (torch.equal(res.W, res_mm.W) and np.array_equal(res.cost, res_mm.cost)):
+            raise AssertionError("nmf_streaming from the memmap differs from the host array")
+        say(f"phase 11 nmf_streaming from a .npy memmap (written in {write_s:.2f} s): "
+            f"{ms_mm / 1e3 / STREAM_EPOCHS:.3f} s/epoch, "
+            f"{gb * STREAM_EPOCHS / ms_mm * 1e3:.2f} GB/s; W and cost equal to the host "
+            "array's bit for bit")
+
+        H0 = np.random.default_rng(11).uniform(size=(k, n)).astype(np.float32)
+        out = np.lib.format.open_memmap(os.path.join(tmp, "H.npy"), mode="w+",
+                                        dtype=np.float32, shape=(k, n))
+        enc = dict(divergence="kl", maxiter=ENCODE_ITERS)
+        streamed, ms_s = wall_ms(torch, lambda: nmf_encode_streaming(
+            Vmm, res.W, H_init=H0, out=out, block_size=STREAM_BLOCK, **enc))
+        whole, ms_w = wall_ms(torch, lambda: nmf_encode(
+            V[None], res.W, H_init=torch.from_numpy(H0)[None].cuda(), **enc))
+        cs, cw = np.asarray(streamed.cost), np.asarray(whole.cost[0], np.float64)
+        cost_gap = float(np.max(np.abs(cs - cw) / np.abs(cw)))
+        Hw = whole.H[0].cpu().numpy()
+        h_gap = float(np.max(np.abs(np.asarray(out) - Hw)) / np.max(np.abs(Hw)))
+        if streamed.H is not out or not (cost_gap <= ENGINE_RTOL and h_gap <= FACTOR_RTOL):
+            raise AssertionError(f"nmf_encode_streaming vs nmf_encode: cost {cost_gap:.3g}, "
+                                 f"H {h_gap:.3g}")
+        say(f"phase 11 nmf_encode_streaming kl {ENCODE_ITERS} iterations from the memmap "
+            f"into a (k, n) memmap: {ms_s / 1e3:.3f} s; in-memory nmf_encode "
+            f"{ms_w / 1e3:.3f} s; cost traces {cost_gap:.3g} apart, H {h_gap:.3g} of "
+            "its largest entry")
+        del Vmm, out
+
+    prof = profile_device_ms(torch, lambda: nmf_streaming(host, k, **{**kw, "epochs": 1}), 1)
+    say(f"phase 11 profile one epoch: {json.dumps(prof)}")
+    say(f"phase 11 {json.dumps({'s_per_epoch': ms / 1e3 / STREAM_EPOCHS, 's_per_epoch_memmap': ms_mm / 1e3 / STREAM_EPOCHS, 'gbps_streamed': gb * STREAM_EPOCHS / ms * 1e3, 'h2d_pinned_gbps': block_gb / pinned_ms * 1e3, 'h2d_pageable_gbps': block_gb / pageable_ms * 1e3, 'gather_gbps': block_gb / gather_s, 'peak_gb': peak / 1e9, 'npy_write_s': write_s, 'encode_streamed_s': ms_s / 1e3, 'encode_in_memory_s': ms_w / 1e3, 'idle_share': prof['idle_share']})}")
+
+
+def cluster_accuracy(truth, pred, k):
+    """Share of points whose cluster maps to their planted block under the
+    best one-to-one matching of clusters to blocks."""
+    from scipy.optimize import linear_sum_assignment
+    C = np.zeros((k, k))
+    np.add.at(C, (truth, pred), 1)
+    rows, cols = linear_sum_assignment(-C)
+    return C[rows, cols].sum() / len(truth)
+
+
+def planted_similarity(rng, n, k):
+    """A symmetric f32 similarity of k planted blocks of n / k points
+    (0.95 within a block, 0.05 across, plus uniform noise of 0.05;
+    tests/test_symnmf.py's), and each point's block."""
+    truth = np.repeat(np.arange(k), n // k)
+    A = (truth[:, None] == truth[None, :]) * 0.9 + 0.05 + 0.05 * rng.uniform(size=(n, n))
+    return ((A + A.T) / 2).astype(np.float32), truth
+
+
+def golden_runs(tt, dev):
+    """The six goldens of tests/goldens as tests/test_goldens.py runs them:
+    name -> (run(g), factor fields held at GOLDEN_ATOL)."""
+    f64 = dict(maxiter=15, tolerance=1e-12, dtype=np.float64, device=dev)
+    return {
+        "lnmf": (lambda g: tt.lnmf(g["V"], g["W0"].shape[1], W_init=g["W0"],
+                                   H_init=g["H0"], **f64), ("W", "H")),
+        "seminmf": (lambda g: tt.seminmf(g["V"], g["W0"].shape[1], W_init=g["W0"],
+                                         H_init=g["H0"], **f64), ("W", "H")),
+        "convexnmf": (lambda g: tt.convexnmf(g["V"], g["G0"].shape[1], G_init=g["G0"],
+                                             H_init=g["H0"], **f64), ("W", "H", "G")),
+        "chnmf": (lambda g: tt.chnmf(g["V"], g["G0"].shape[1], S_init=g["S"],
+                                     G_init=g["G0"], H_init=g["H0"], **f64), ("W", "H")),
+        "symnmf": (lambda g: tt.symnmf(g["A"], g["H0"].shape[1], H_init=g["H0"], **f64),
+                   ("H",)),
+        "constrainednmf_kl": (lambda g: tt.constrainednmf(
+            g["V"], g["labels"], g["W0"].shape[1], W_init=g["W0"], Z_init=g["Z0"],
+            divergence="kl", **f64), ("W", "H", "Z")),
+    }
+
+
+def family_inits(rng, m, n, k, dtype=np.float32):
+    """The inits phase 12 gives each solver, from a NumPy generator, and
+    the half-labeled label vector of constrainednmf."""
+    u = lambda *s: rng.uniform(size=s).astype(dtype)
+    labels = rng.integers(0, LABEL_CLASSES, n)
+    labels[rng.permutation(n)[: n // 2]] = -1
+    p = min(CHNMF_ANCHORS, n // 4)
+    return {"W": u(m, k), "H": u(k, n) + 0.2, "G": u(n, k), "Gs": u(p, k),
+            "Z": u(k, int(np.sum(labels < 0)) + LABEL_CLASSES), "p": p, "labels": labels}
+
+
+def family_calls(tt, V, k, ini, iters, **kw):
+    """Phase 12's runs of the five solvers on V (m, n): name -> call()."""
+    kw = dict(maxiter=iters, tolerance=NEVER, **kw)
+    return {
+        "lnmf": lambda: tt.lnmf(V, k, W_init=ini["W"], H_init=ini["H"], **kw),
+        "seminmf": lambda: tt.seminmf(V, k, W_init=2 * ini["W"] - 1, H_init=ini["H"], **kw),
+        "convexnmf": lambda: tt.convexnmf(V, k, G_init=ini["G"], H_init=ini["H"], **kw),
+        "chnmf": lambda: tt.chnmf(V, k, S_init=V[:, : ini["p"]], G_init=ini["Gs"],
+                                  H_init=ini["H"], **kw),
+        "constrainednmf kl": lambda: tt.constrainednmf(
+            V, ini["labels"], k, W_init=ini["W"], Z_init=ini["Z"], divergence="kl", **kw),
+    }
+
+
+def ran_out(name, res, iters):
+    """Whether a run did all its iterations.  lnmf's inclusive rule
+    (lnmf.m:89) stops once two f32 costs are equal, whatever the
+    tolerance, so an lnmf run may also stop by it after the first two."""
+    if name == "lnmf" and res.converged:
+        return 2 < res.n_iters <= iters
+    return res.n_iters == iters
+
+
+def phase12_gram_family(torch, V):
+    """The Gram/MU family at benchmarks/gram_family_marginal.py's width:
+    ms per iteration, the one-time Grams, the default inits, symnmf's
+    planted clusters, the goldens on the card in f64, and f32 on the card
+    against f64 on the CPU."""
+    import nmf_toolbox_tpu_torch as tt
+    from nmf_toolbox_tpu_torch.utils import convex_hull_anchors, kmeans_indicator_h
+    m, n, k = GRAM
+    ini = {key: torch.from_numpy(x).cuda() if isinstance(x, np.ndarray) and x.dtype == np.float32
+           else x for key, x in family_inits(np.random.default_rng(12), m, n, k).items()}
+    summary = {}
+    for iters in (2, 2 + FAMILY_ITERS):
+        for name, call in family_calls(tt, V, k, ini, iters).items():
+            if iters == 2:
+                call()  # warm-up
+            res, ms = wall_ms(torch, call)
+            c = np.asarray(res.cost)[: res.n_iters]
+            if not (ran_out(name, res, iters) and np.all(np.isfinite(c))):
+                raise AssertionError(f"{name}: n_iters {res.n_iters}, cost {c}")
+            summary.setdefault(name, {}).update({f"ms_{iters}": ms, "n_iters": res.n_iters})
+    for name, s in summary.items():
+        s["ms_per_iter"] = (s[f"ms_{2 + FAMILY_ITERS}"] - s["ms_2"]) / (s["n_iters"] - 2)
+        say(f"phase 12 {name} {m}x{n} r{k}: {s['ms_per_iter']:.3f} ms/iter "
+            f"(calls of 2 and {s['n_iters']} iterations: {s['ms_2']:.1f} and "
+            f"{s[f'ms_{2 + FAMILY_ITERS}']:.1f} ms)")
+    del ini
+    S = V[:, :CHNMF_ANCHORS]
+    V.T @ V  # warm-up
+    _, vtv_ms = wall_ms(torch, lambda: V.T @ V)
+    _, sv_ms = wall_ms(torch, lambda: (S.T @ V, S.T @ S))
+    kmeans_indicator_h(torch.Generator().manual_seed(1), V[:, :1000], k)  # warm-up
+    _, km_ms = wall_ms(torch, lambda: kmeans_indicator_h(torch.Generator().manual_seed(0), V, k))
+    anchors, hull_ms = wall_ms(torch, lambda: convex_hull_anchors(V, seed=0))
+    summary["grams_s"] = {"VtV": vtv_ms / 1e3, "StV_StS": sv_ms / 1e3}
+    summary["inits_s"] = {"kmeans_indicator_h": km_ms / 1e3,
+                          "convex_hull_anchors": hull_ms / 1e3, "anchors": anchors.shape[1]}
+    say(f"phase 12 one-time Grams: V'V {vtv_ms / 1e3:.3f} s, S'V with S'S (p "
+        f"{CHNMF_ANCHORS}) {sv_ms / 1e3:.3f} s; default inits: kmeans_indicator_h "
+        f"k={k} {km_ms / 1e3:.3f} s, convex_hull_anchors (randomized path) "
+        f"{hull_ms / 1e3:.3f} s, p = {anchors.shape[1]}")
+    del S, anchors
+
+    ns, ks = SYM
+    A, truth = planted_similarity(np.random.default_rng(13), ns, ks)
+    A = torch.from_numpy(A).cuda()
+    sym = lambda it: tt.symnmf(A, ks, maxiter=it, tolerance=NEVER, seed=0)
+    sym(2)
+    (_, ms2), (res, ms22) = (wall_ms(torch, lambda: sym(it)) for it in (2, 2 + FAMILY_ITERS))
+    acc20 = cluster_accuracy(truth, torch.argmax(res.H, dim=1).cpu().numpy(), ks)
+    res = sym(SYM_RECOVERY_ITERS)
+    acc = cluster_accuracy(truth, torch.argmax(res.H, dim=1).cpu().numpy(), ks)
+    if not (acc >= SYM_ACCURACY and np.all(np.isfinite(res.cost))):
+        raise AssertionError(f"symnmf recovered {acc:.3f} of the planted blocks")
+    summary["symnmf"] = {"ms_per_iter": (ms22 - ms2) / FAMILY_ITERS, "accuracy": acc,
+                         "accuracy_22": acc20}
+    say(f"phase 12 symnmf n={ns} r{ks}, {ks} planted blocks: {(ms22 - ms2) / FAMILY_ITERS:.3f} "
+        f"ms/iter; clusters match the blocks on {acc:.4f} of the points after "
+        f"{SYM_RECOVERY_ITERS} iterations ({acc20:.4f} after {2 + FAMILY_ITERS})")
+    del A, res
+
+    gold = pathlib.Path(__file__).resolve().parent / "tests" / "goldens"
+    worst = 0.0
+    for name, (run, fields) in golden_runs(tt, "cuda").items():
+        g = np.load(gold / f"{name}.npz")
+        r = run(g)
+        for f in fields:
+            x = getattr(r, f)
+            if x.device.type != "cuda":
+                raise AssertionError(f"golden {name}: {f} on {x.device}")
+            err = float(np.max(np.abs(x.cpu().numpy() - g[f])))
+            worst = max(worst, err)
+            if not err <= GOLDEN_ATOL:
+                raise AssertionError(f"golden {name} {f}: {err:.3g} > {GOLDEN_ATOL}")
+        if not np.allclose(r.cost, g["cost"], rtol=GOLDEN_RTOL, atol=0):
+            raise AssertionError(f"golden {name}: cost trace off")
+        if name.startswith("constrainednmf") and not np.array_equal(r.A, g["A"]):
+            raise AssertionError("golden constrainednmf_kl: A differs")
+    say(f"phase 12 goldens on the card in f64 (lnmf, seminmf, convexnmf, chnmf, symnmf, "
+        f"constrainednmf_kl): factors within {worst:.3g} (<= {GOLDEN_ATOL}), costs within "
+        f"rtol {GOLDEN_RTOL}, A exact")
+
+    ms_, ns_, ks_ = SMALL
+    rng = np.random.default_rng(42)
+    Vs = rng.uniform(0.05, 1.0, (ms_, ns_))
+    ini = family_inits(rng, ms_, ns_, ks_, np.float64)
+    As = planted_similarity(rng, ns_, ks_)[0].astype(np.float64)
+    Hs = rng.uniform(size=(ns_, ks_))
+    f32 = {key: x.astype(np.float32) if isinstance(x, np.ndarray) and x.dtype == np.float64
+           else x for key, x in ini.items()}
+    card = family_calls(tt, Vs.astype(np.float32), ks_, f32, SMALL_ITERS)
+    card["symnmf"] = lambda: tt.symnmf(As.astype(np.float32), ks_, H_init=Hs.astype(np.float32),
+                                       maxiter=SMALL_ITERS, tolerance=NEVER)
+    cpu = family_calls(tt, Vs, ks_, ini, SMALL_ITERS, device="cpu")
+    cpu["symnmf"] = lambda: tt.symnmf(As, ks_, H_init=Hs, maxiter=SMALL_ITERS,
+                                      tolerance=NEVER, device="cpu")
+    gaps = {}
+    for name, call in card.items():
+        a, b = call(), cpu[name]()
+        if getattr(a, a.fields[0]).device.type != "cuda":
+            raise AssertionError(f"{name}: NumPy input did not run on the card")
+        if not (ran_out(name, a, SMALL_ITERS) and b.n_iters == SMALL_ITERS):
+            raise AssertionError(f"{name}: {a.n_iters} and {b.n_iters} iterations")
+        c32 = np.asarray(a.cost, np.float64)[: a.n_iters]
+        c64 = np.asarray(b.cost)[: a.n_iters]
+        gaps[name] = float(np.max(np.abs(c32 - c64) / np.abs(c64)))
+        if not gaps[name] <= F32_RTOL:
+            raise AssertionError(f"{name}: f32 card {gaps[name]:.3g} from f64 CPU")
+    summary["f32_vs_f64"] = gaps
+    say(f"phase 12 f32 on the card vs f64 on the CPU, {ms_}x{ns_} r{ks_}, {SMALL_ITERS} "
+        f"iterations, cost traces: {json.dumps(gaps)}")
+    say(f"phase 12 {json.dumps(summary)}")
+
+
 def main():
     import torch
     phase0_device(torch)
@@ -977,6 +1291,15 @@ def main():
     phase8_nmf_options(torch, nmf, V)
     phase9_serving(torch)
     phase10_rank(torch, V)
+    # Phases 11-12 run no kernel of their own (the JAX modules they port
+    # reach no pallas_call); the counters say whether any launched.
+    fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
+    dk.kl_phi_dot_ht_dma_launches = 0
+    phase11_streaming(torch, V)
+    phase12_gram_family(torch, V)
+    launches = {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
+    launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
+    say(f"phase 12 kernel launches in phases 11-12: {json.dumps(launches)}")
     del V
 
     def per_iter(name):

@@ -9,9 +9,13 @@ built with ``nvcc`` at first use; on CPU tensors their plain PyTorch
 versions run instead.
 """
 from .core import EPS, Result
-from .models import nmf, nmf_batched, nmf_encode, nmf_hals, nmf_multiseed
+from .models import (chnmf, constrainednmf, convexnmf, lnmf, nmf, nmf_batched,
+                     nmf_encode, nmf_encode_streaming, nmf_hals, nmf_multiseed,
+                     nmf_streaming, seminmf, symnmf)
 from .rank import consensus_stability, estimate_rank_svd, pick_rank
 
-__all__ = ["EPS", "Result", "nmf", "nmf_hals", "nmf_batched", "nmf_multiseed",
-           "nmf_encode", "pick_rank", "consensus_stability", "estimate_rank_svd"]
+__all__ = ["EPS", "Result", "nmf", "lnmf", "seminmf", "convexnmf", "chnmf",
+           "constrainednmf", "nmf_hals", "nmf_streaming", "nmf_encode_streaming",
+           "nmf_batched", "nmf_multiseed", "nmf_encode", "symnmf", "pick_rank",
+           "consensus_stability", "estimate_rank_svd"]
 __version__ = "1.1.0"  # the distribution's version (pyproject.toml)

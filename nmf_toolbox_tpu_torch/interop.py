@@ -1,9 +1,9 @@
 """Carry factors between the JAX package and this port.
 
 Both directions go through NumPy: a JAX ``Result`` or checkpoint holds
-NumPy arrays, and this module turns them into tensors that ``nmf`` and
-``nmf_hals`` take as ``W_init``/``H_init`` and ``resume_state``.  Nothing
-here imports JAX.
+NumPy arrays, and this module turns them into tensors that the port's
+solvers take as inits (``W_init``, ``H_init``, ``G_init``, ``S_init``,
+``Z_init``) and ``resume_state``.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -13,19 +13,23 @@ import torch
 from .core import resolve_device, torch_dtype
 
 
-def factors_from_numpy(obj, *, device=None, dtype=None):
-    """(W, H) tensors from a JAX ``Result`` or a mapping with "W" and "H".
+def factors_from_numpy(obj, *, device=None, dtype=None, fields=("W", "H")):
+    """Tensors of the factors ``fields`` (default W and H), in that order,
+    from a JAX ``Result`` or a mapping that holds them.
 
     Each factor is a NumPy array or a per-source list of them, as the JAX
     package returns; lists stay lists.  Tensors land on ``device``
     (default: the CUDA card; with no card this raises, so pass
     ``device="cpu"``) in ``dtype`` (default: the arrays' own dtype), ready
-    to pass as ``W_init=``/``H_init=``.
+    to pass as a solver's inits: ``W_init=``/``H_init=``, chnmf's and
+    convexnmf's ``G_init=``/``S_init=``, constrainednmf's ``Z_init=``,
+    symnmf's (n, k) ``H_init=``, ``nmf_streaming``'s ``W_init=``.
     """
     get = obj.get if isinstance(obj, dict) else (lambda f: getattr(obj, f, None))
-    W, H = get("W"), get("H")
-    if W is None or H is None:
-        raise ValueError("need both W and H factors")
+    found = [get(f) for f in fields]
+    missing = [f for f, x in zip(fields, found) if x is None]
+    if missing:
+        raise ValueError(f"need the factors {list(fields)}; missing {missing}")
     device = resolve_device(None, device)
     dt = None if dtype is None else torch_dtype(dtype)
 
@@ -34,7 +38,7 @@ def factors_from_numpy(obj, *, device=None, dtype=None):
             return [convert(a) for a in x]
         t = torch.tensor(np.asarray(x), device=device)  # a copy: JAX arrays are read-only
         return t if dt is None else t.to(dt)
-    return convert(W), convert(H)
+    return tuple(convert(x) for x in found)
 
 
 def resume_state_from_numpy(rs, *, device=None, dtype=None) -> dict:

@@ -1,4 +1,5 @@
 """Utilities (PyTorch counterparts of ``nmf_toolbox_tpu/utils``)."""
-from .init import nndsvd, seedable
+from .init import convex_hull_anchors, kmeans, kmeans_indicator_h, nndsvd, seedable
 
-__all__ = ["nndsvd", "seedable"]
+__all__ = ["nndsvd", "seedable", "kmeans", "kmeans_indicator_h",
+           "convex_hull_anchors"]

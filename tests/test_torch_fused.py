@@ -98,10 +98,15 @@ def test_import_builds_nothing_and_never_imports_jax():
         "import sys\n"
         "import nmf_toolbox_tpu_torch, nmf_toolbox_tpu_torch.interop\n"
         "from nmf_toolbox_tpu_torch.ops.kernels import _build, fused, fused_dma\n"
-        "from nmf_toolbox_tpu_torch.models import batched, hals\n"
+        "from nmf_toolbox_tpu_torch.models import batched, hals, streaming\n"
+        "import nmf_toolbox_tpu_torch.models.lnmf, nmf_toolbox_tpu_torch.models.seminmf\n"
+        "import nmf_toolbox_tpu_torch.models.convexnmf, nmf_toolbox_tpu_torch.models.chnmf\n"
+        "import nmf_toolbox_tpu_torch.models.symnmf, nmf_toolbox_tpu_torch.models.constrainednmf\n"
         "from nmf_toolbox_tpu_torch import rank\n"
         "from nmf_toolbox_tpu_torch.utils import init\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'nmf_toolbox_tpu'], "
+        "'nmf_toolbox_tpu imported'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
         "assert _build.load.cache_info().currsize == 0, 'library loaded'\n"
         "print('ok')\n"
