@@ -110,7 +110,26 @@ without printing the last line:
    inputs, no ``device=``) within 1e-4 relative of the port's f64 run on
    the CPU, cost traces at 1000x500 r25 over 50 iterations (symnmf on a
    planted 25-block similarity of n = 500). The kernel counters, set to 0 before phase 11, are
-   printed after phase 12: this slice's path runs no kernel.
+   printed after phase 12: this slice's path runs no kernel;
+13. the convolutive family at the JAX package's shapes for it, f32: ``cnmf``
+   at 513x10 000 r64 T8 (euclid ``gram`` and ``naive``, KL, IS) and
+   ``nmf2d`` there with P5 (euclid, KL), ms per iteration from calls of 2
+   and 22 iterations, the gram trace within rtol 1e-4 (plus 8 eps_f32
+   ||V||^2) of naive's; ``chcnmf`` at 100 000x10 000 r200 T8 on phase 7's
+   V with S = its first 500 columns: the one-time S'V and S'S in seconds,
+   ms per iteration, and the inner fit of G to a W_init (all steps and
+   one); ``cnmf_encode`` (T4) and ``nmf2d_encode`` (T3 P4) on phase 9's
+   batch, euclid and KL at cost_every 1 and 10, median ms per call, held
+   like phase 9's encodes to the port's ``cnmf`` / ``nmf2d`` with
+   ``W_fixed=True`` (problems 0 and 255), cost_every=10 leaving H
+   bit-identical, the inner solves under set_sync_debug_mode("error");
+   ``profile_device_ms`` of a KL ``cnmf`` call and a KL ``cnmf_encode``
+   call; the goldens cnmf_euclid (both methods), chcnmf and nmf2d_kl on
+   the card in f64 at tests/test_goldens.py's tolerances; each solver in
+   f32 on the card (NumPy inputs, no ``device=``) within 1e-4 relative of
+   its f64 run on the CPU, cost traces at 129x400 r8 T4 P3 (chcnmf p = 40)
+   over 50 iterations.  The kernel counters, set to 0 before phase 13,
+   must read 0 after it: the JAX modules it ports reach no pallas_call.
 
 Then a JSON line of per-kernel results and, last, the device line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
@@ -124,6 +143,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import pathlib
 import subprocess
@@ -165,6 +185,13 @@ LABEL_CLASSES = 10    # phase 12's constrainednmf: half of V's columns labeled
 SYM = (10_000, 20)    # phase 12's symnmf: n, k of a planted block similarity
 SYM_RECOVERY_ITERS, SYM_ACCURACY = 300, 0.95  # 20 iterations do not recover it
 SMALL, SMALL_ITERS = (1000, 500, 25), 50  # phase 12's f32 card vs f64 CPU runs
+CONV = (513, 10_000, 64, 8)  # m, n, k, T: benchmarks/run_all.py:212-221, cost_every_tpu.py:13
+CONV_P = 5            # nmf2d's pitch shifts: benchmarks/solver_marginal_sweep.py:112-132
+CONV_ITERS = 20       # phase 13's timed iterations per solver (calls of 2 and 22)
+CHCNMF = (200, 8, 500)  # k, T, anchors p on phase 7's V: benchmarks/hull_marginal.py:32-34,98-138
+CONV_ENCODE_T, NMF2D_ENCODE_TP = 4, (3, 4)  # benchmarks/batched_serving_tpu.py:84-126
+CONV_SMALL = (129, 400, 8, 4, 3, 40)  # m, n, k, T, P, p: phase 13's f32 card vs f64 CPU runs
+CONV_GOLDEN_TOL = {"cnmf_euclid": 1e-8, "chcnmf": 1e-8, "nmf2d_kl": 1e-9}  # test_goldens.py
 F32_RTOL = 1e-4       # f32 on the card vs f64 on the CPU, cost traces
 GOLDEN_ATOL = GOLDEN_RTOL = 1e-9  # tests/test_goldens.py, f64
 NEVER = 1e-30         # a tolerance no stop rule meets (0 falls back to 1e-3)
@@ -781,7 +808,7 @@ def check_engine(name, res, torch, refs, floor=0.0, rtol=ENGINE_RTOL):
         worst = max(worst, float(np.max(gap / np.abs(r))))
         for f in ("W", "H"):
             x, y = getattr(res, f), getattr(ref, f).double()
-            x = (x[b] if x.ndim == 3 else x).double()  # encode's W is shared
+            x = (x[b] if x.ndim > y.ndim else x).double()  # an encoder's W is shared
             gap_f = float((x - y).abs().max() / y.abs().max())
             if not gap_f <= FACTOR_RTOL:
                 raise AssertionError(f"{name}: problem {b} {f} {gap_f:.3g} from single nmf")
@@ -789,15 +816,22 @@ def check_engine(name, res, torch, refs, floor=0.0, rtol=ENGINE_RTOL):
     return worst, worst_f
 
 
+def serving_batch(torch):
+    """Phase 9's batch on the card (B gamma bases times gamma codes, + 0.01),
+    its bases and the generator that drew them, for the draws after."""
+    B, m, n, k = SERVING
+    rng = np.random.default_rng(0)
+    bases = rng.gamma(2.0, 1.0, (B, m, k)).astype(np.float32)
+    codes = rng.gamma(0.5, 1.0, (B, k, n)).astype(np.float32)
+    return rng, bases, torch.from_numpy(np.einsum("bmk,bkn->bmn", bases, codes) + 0.01).cuda()
+
+
 def phase9_serving(torch):
     from nmf_toolbox_tpu_torch import nmf, nmf_batched, nmf_encode
     from nmf_toolbox_tpu_torch.core import EPS
     from nmf_toolbox_tpu_torch.models import batched as tb
     B, m, n, k = SERVING
-    rng = np.random.default_rng(0)
-    bases = rng.gamma(2.0, 1.0, (B, m, k)).astype(np.float32)
-    codes = rng.gamma(0.5, 1.0, (B, k, n)).astype(np.float32)
-    Vs = torch.from_numpy(np.einsum("bmk,bkn->bmn", bases, codes) + 0.01).cuda()
+    rng, bases, Vs = serving_batch(torch)
     W0, H0 = (torch.from_numpy(rng.uniform(size=s).astype(np.float32)).cuda()
               for s in ((B, m, k), (B, k, n)))
     Wd = torch.from_numpy(bases[0] / np.sqrt((bases[0] ** 2).sum(0))).cuda()
@@ -1260,6 +1294,239 @@ def phase12_gram_family(torch, V):
     say(f"phase 12 {json.dumps(summary)}")
 
 
+def per_iter_ms(torch, calls):
+    """name -> call(iters): ms per iteration from calls of 2 and
+    2 + CONV_ITERS iterations after a warm-up, so one-time work drops out;
+    each run finite with all its iterations.  Returns name -> (ms/iter,
+    the longer run's Result)."""
+    out = {}
+    for name, call in calls.items():
+        call(2)  # warm-up
+        (_, ms2), (res, ms22) = (wall_ms(torch, lambda: call(it)) for it in (2, 2 + CONV_ITERS))
+        c = np.asarray(res.cost)
+        if res.n_iters != 2 + CONV_ITERS or not np.all(np.isfinite(c)):
+            raise AssertionError(f"{name}: n_iters {res.n_iters}, cost {c}")
+        out[name] = ((ms22 - ms2) / CONV_ITERS, res)
+        say(f"phase 13 {name}: {out[name][0]:.3f} ms/iter (calls of 2 and "
+            f"{2 + CONV_ITERS} iterations: {ms2:.1f} and {ms22:.1f} ms), final cost "
+            f"{c[-1]:.7g}")
+    return out
+
+
+def conv_golden_runs(tt, dev):
+    """The convolutive goldens as tests/test_goldens.py runs them:
+    name -> (golden file, run(g), factor fields held at its tolerance)."""
+    f64 = dict(tolerance=1e-12, dtype=np.float64, device=dev)
+    cnmf = lambda method: (lambda g: tt.cnmf(
+        g["V"], g["W0"].shape[1], g["W0"].shape[2], W_init=g["W0"], H_init=g["H0"],
+        maxiter=15, method=method, **f64))
+    return {
+        "cnmf_euclid naive": ("cnmf_euclid", cnmf("naive"), ("W",)),
+        "cnmf_euclid gram": ("cnmf_euclid", cnmf("gram"), ("W",)),
+        "chcnmf": ("chcnmf", lambda g: tt.chcnmf(
+            g["V"], g["G0"].shape[1], int(g["T"]), S_init=g["S"], G_init=g["G0"],
+            H_init=g["H0"], H_sparsity=float(g["H_sparsity"]), maxiter=12, **f64),
+            ("W", "H")),
+        "nmf2d_kl": ("nmf2d_kl", lambda g: tt.nmf2d(
+            g["V"], g["W0"].shape[1], g["W0"].shape[2], g["H0"].shape[2], W_init=g["W0"],
+            H_init=g["H0"], divergence="kl", maxiter=15, **f64), ("W", "H")),
+    }
+
+
+def conv_small_calls(tt, V, ini, **kw):
+    """Phase 13's f32-vs-f64 runs on V (m, n): name -> call()."""
+    _, _, k, T, P, p = CONV_SMALL
+    kw = dict(maxiter=SMALL_ITERS, tolerance=NEVER, **kw)
+    cnmf = lambda **c: tt.cnmf(V, k, T, W_init=ini["W"], H_init=ini["H"], **c, **kw)
+    nmf2d = lambda **c: tt.nmf2d(V, k, T, P, W_init=ini["W"], H_init=ini["H3"], **c, **kw)
+    return {
+        "cnmf euclidean": lambda: cnmf(),
+        "cnmf kl": lambda: cnmf(divergence="kl"),
+        "nmf2d euclidean": lambda: nmf2d(),
+        "nmf2d kl": lambda: nmf2d(divergence="kl"),
+        "chcnmf": lambda: tt.chcnmf(V, k, T, S_init=V[:, :p], G_init=ini["G"],
+                                    H_init=ini["H"], **kw),
+    }
+
+
+def phase13_convolutive(torch, V_big):
+    """The convolutive family at the JAX package's shapes for it: ms per
+    iteration, the encoders per call, profiles, the goldens on the card in
+    f64, and f32 on the card against f64 on the CPU."""
+    import nmf_toolbox_tpu_torch as tt
+    from nmf_toolbox_tpu_torch.core import EPS
+    from nmf_toolbox_tpu_torch.models import batched as tb
+    from nmf_toolbox_tpu_torch.ops.divergence import ab_params
+    tchc = importlib.import_module("nmf_toolbox_tpu_torch.models.chcnmf")
+    summary = {}
+
+    # a, b: cnmf and nmf2d at 513x10 000 r64 T8 (P5)
+    m, n, k, T = CONV
+    g = torch.Generator(device="cuda").manual_seed(13)
+    V = 0.05 + 0.95 * torch.rand((m, n), generator=g, device="cuda")
+    W0 = torch.rand((m, k, T), generator=g, device="cuda")
+    H0 = torch.rand((k, n), generator=g, device="cuda")
+    H3 = torch.rand((k, n, CONV_P), generator=g, device="cuda")
+    kw = dict(W_init=W0, tolerance=NEVER)
+    timed = per_iter_ms(torch, {
+        f"cnmf euclidean gram {m}x{n} r{k} T{T}": lambda it: tt.cnmf(
+            V, k, T, H_init=H0, maxiter=it, method="gram", **kw),
+        f"cnmf euclidean naive {m}x{n} r{k} T{T}": lambda it: tt.cnmf(
+            V, k, T, H_init=H0, maxiter=it, method="naive", **kw),
+        f"cnmf kl {m}x{n} r{k} T{T}": lambda it: tt.cnmf(
+            V, k, T, H_init=H0, maxiter=it, divergence="kl", **kw),
+        f"cnmf is {m}x{n} r{k} T{T}": lambda it: tt.cnmf(
+            V, k, T, H_init=H0, maxiter=it, divergence="is", **kw),
+        f"nmf2d euclidean {m}x{n} r{k} T{T} P{CONV_P}": lambda it: tt.nmf2d(
+            V, k, T, CONV_P, H_init=H3, maxiter=it, **kw),
+        f"nmf2d kl {m}x{n} r{k} T{T} P{CONV_P}": lambda it: tt.nmf2d(
+            V, k, T, CONV_P, H_init=H3, maxiter=it, divergence="kl", **kw),
+    })
+    summary["ms_per_iter"] = {name: ms for name, (ms, _) in timed.items()}
+    gram, naive = (np.asarray(timed[f"cnmf euclidean {x} {m}x{n} r{k} T{T}"][1].cost, np.float64)
+                   for x in ("gram", "naive"))
+    floor = float(gram_floor(torch, V))
+    gap = np.abs(gram - naive)
+    if not np.all(gap <= ENGINE_RTOL * np.abs(naive) + floor):
+        raise AssertionError(f"cnmf gram trace {np.max(gap / naive):.3g} from naive's")
+    summary["gram_vs_naive"] = float(np.max(gap / naive))
+    say(f"phase 13 cnmf gram vs naive cost traces: {summary['gram_vs_naive']:.3g} "
+        f"relative (allowed rtol {ENGINE_RTOL} + {floor:.3g})")
+    prof = profile_device_ms(torch, lambda: tt.cnmf(
+        V, k, T, H_init=H0, maxiter=ITERS, divergence="kl", **kw), ITERS)
+    say(f"phase 13 profile cnmf kl: {json.dumps(prof)}")
+    summary["idle_share_cnmf_kl"] = prof["idle_share"]
+    del V, W0, H0, H3, timed
+
+    # c: chcnmf at 100 000x10 000 r200 T8, S = V's first 500 columns
+    m, n = V_big.shape
+    k, T, p = CHCNMF
+    S = V_big[:, :p]
+    g = torch.Generator(device="cuda").manual_seed(14)
+    G0 = torch.rand((p, k, T), generator=g, device="cuda")
+    H0 = torch.rand((k, n), generator=g, device="cuda")
+    (S.T @ V_big, S.T @ S)  # warm-up
+    _, grams_ms = wall_ms(torch, lambda: (S.T @ V_big, S.T @ S))
+    timed = per_iter_ms(torch, {f"chcnmf {m}x{n} r{k} T{T} p{p}": lambda it: tt.chcnmf(
+        V_big, k, T, S_init=S, G_init=G0, H_init=H0, maxiter=it, tolerance=NEVER)})
+    summary["ms_per_iter"].update({name: ms for name, (ms, _) in timed.items()})
+    W_init = V_big[:, p:p + k * T].reshape(m, k, T)
+    tchc._fit_g_to_w(S, W_init, G0, iters=1)  # warm-up
+    _, step_ms = wall_ms(torch, lambda: tchc._fit_g_to_w(S, W_init, G0, iters=1))
+    G_fit, fit_ms = wall_ms(torch, lambda: tchc._fit_g_to_w(S, W_init, G0))
+    if not bool(torch.isfinite(G_fit).all()):
+        raise AssertionError("chcnmf's fit of G to W_init is not finite")
+    summary["chcnmf_one_time_s"] = {"StV_StS": grams_ms / 1e3, "fit_g_to_w": fit_ms / 1e3,
+                                    "fit_g_to_w_one_step": step_ms / 1e3}
+    say(f"phase 13 chcnmf one-time: S'V with S'S {grams_ms / 1e3:.4f} s; the fit of G to a "
+        f"W_init ({m}x{k}x{T}) {fit_ms / 1e3:.3f} s, one step of it {step_ms:.2f} ms")
+    del S, G0, H0, W_init, G_fit, timed
+
+    # d: the encoders on phase 9's batch
+    B, m, n, k = SERVING
+    rng, _, Vs = serving_batch(torch)
+    T, (T2, P2) = CONV_ENCODE_T, NMF2D_ENCODE_TP
+    Wc, W2 = (torch.from_numpy(rng.gamma(2.0, 1.0, (m, k, t)).astype(np.float32)).cuda()
+              for t in (T, T2))
+    H0, H02 = (torch.from_numpy(rng.uniform(size=s).astype(np.float32)).cuda()
+               for s in ((B, k, n), (B, k, n, P2)))
+    one = dict(maxiter=ENGINE_ITERS, tolerance=NEVER, W_fixed=True)
+    engines = {
+        "cnmf_encode": (lambda **c: tt.cnmf_encode(Vs, Wc, H_init=H0, maxiter=ENGINE_ITERS, **c),
+                        lambda i, **c: tt.cnmf(Vs[i], k, T, W_init=Wc, H_init=H0[i], **one, **c)),
+        "nmf2d_encode": (lambda **c: tt.nmf2d_encode(Vs, W2, P2, H_init=H02,
+                                                     maxiter=ENGINE_ITERS, **c),
+                         lambda i, **c: tt.nmf2d(Vs[i], k, T2, P2, W_init=W2, H_init=H02[i],
+                                                 **one, **c)),
+    }
+    out = {}
+    for engine, (call, single) in engines.items():
+        for div in ("euclidean", "kl"):
+            for ce in (1, 10):
+                name = f"{engine} {div}" + ("" if ce == 1 else f" cost_every={ce}")
+                res, ms = median_ms(torch, lambda: call(divergence=div, cost_every=ce))
+                refs = {} if ce > 1 else {i: single(i, divergence=div) for i in (0, B - 1)}
+                gap, gap_f = check_engine(name, res, torch, refs,
+                                          0.0 if div == "kl" else gram_floor(torch, Vs))
+                out[name] = {"ms_per_call": ms, "ms_per_problem": ms / B, "res": res,
+                             "cost_gap": gap, "factor_gap": gap_f}
+                say(f"phase 13 {name} B{B} {m}x{n} r{k}, {ENGINE_ITERS} iterations: "
+                    f"{ms:.2f} ms/call, {1e3 * ms / B:.2f} us/problem, final cost mean "
+                    f"{np.mean(res.cost[:, -1]):.7g}; problems 0 and {B - 1} against the "
+                    f"single solver: costs {gap:.3g}, factors {gap_f:.3g} relative")
+            r1, r10 = out[f"{engine} {div}"]["res"], out[f"{engine} {div} cost_every=10"]["res"]
+            checks = [i for i in range(ENGINE_ITERS) if i == 0 or (i + 1) % 10 == 0]
+            if not (torch.equal(r1.H, r10.H)
+                    and np.array_equal(r1.cost[:, checks], r10.cost[:, checks])):
+                raise AssertionError(f"{engine} {div}: cost_every=10 moved H or a check's cost")
+    hsp = torch.zeros(k, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for div in ("euclidean", "kl"):
+            a, b = ab_params(div, 1.0, 1.0)
+            tb._solve_conv_encode(tb._EncSpec(ENGINE_ITERS, EPS, div, a, b), Vs, Wc, H0, hsp)
+            tb._solve_nmf2d_encode(tb._EncSpec(ENGINE_ITERS, EPS, div, a, b, 10, P2),
+                                   Vs, W2, H02, hsp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(f"phase 13 cost_every=10 leaves H bit-identical; the cnmf_encode and nmf2d_encode "
+        f"solves (euclidean, kl), {ENGINE_ITERS} iterations each, ran under "
+        "set_sync_debug_mode('error'): no host sync")
+    prof = profile_device_ms(torch, lambda: tt.cnmf_encode(
+        Vs, Wc, H_init=H0, divergence="kl", maxiter=ENGINE_ITERS), ENGINE_ITERS)
+    say(f"phase 13 profile cnmf_encode kl: {json.dumps(prof)}")
+    summary["encoders"] = {name: {key: v for key, v in r.items() if key != "res"}
+                           for name, r in out.items()}
+    summary["idle_share_cnmf_encode_kl"] = prof["idle_share"]
+    del Vs, Wc, W2, H0, H02, out
+
+    # f: the goldens on the card in f64
+    gold = pathlib.Path(__file__).resolve().parent / "tests" / "goldens"
+    worst = {}
+    for name, (file, run, fields) in conv_golden_runs(tt, "cuda").items():
+        g = np.load(gold / f"{file}.npz")
+        tol = CONV_GOLDEN_TOL[file]
+        r = run(g)
+        for f in fields:
+            x = getattr(r, f)
+            err = float(np.max(np.abs(x.cpu().numpy() - g[f])))
+            if x.device.type != "cuda" or not err <= tol:
+                raise AssertionError(f"golden {name} {f}: {err:.3g} > {tol} on {x.device}")
+            worst[name] = max(worst.get(name, 0.0), err)
+        if not np.allclose(r.cost, g["cost"], rtol=tol, atol=0):
+            raise AssertionError(f"golden {name}: cost trace off")
+    summary["goldens_f64_max_abs_err"] = worst
+    say(f"phase 13 goldens on the card in f64, factors' max abs error (tolerance "
+        f"{json.dumps(CONV_GOLDEN_TOL)}, costs at the same rtol): {json.dumps(worst)}")
+
+    # g: f32 on the card (NumPy inputs, no device=) against f64 on the CPU
+    ms_, ns_, ks_, Ts, Ps, ps = CONV_SMALL
+    rng = np.random.default_rng(44)
+    Vsm = rng.uniform(0.05, 1.0, (ms_, ns_))
+    ini = {"W": rng.uniform(size=(ms_, ks_, Ts)), "H": rng.uniform(size=(ks_, ns_)),
+           "H3": rng.uniform(size=(ks_, ns_, Ps)), "G": rng.uniform(size=(ps, ks_, Ts))}
+    f32 = {key: x.astype(np.float32) for key, x in ini.items()}
+    card = conv_small_calls(tt, Vsm.astype(np.float32), f32)
+    cpu = conv_small_calls(tt, Vsm, ini, device="cpu")
+    gaps = {}
+    for name, call in card.items():
+        a, b = call(), cpu[name]()
+        if a.W.device.type != "cuda":
+            raise AssertionError(f"{name}: NumPy input did not run on the card")
+        if not (a.n_iters == b.n_iters == SMALL_ITERS):
+            raise AssertionError(f"{name}: {a.n_iters} and {b.n_iters} iterations")
+        c32, c64 = np.asarray(a.cost, np.float64), np.asarray(b.cost)
+        gaps[name] = float(np.max(np.abs(c32 - c64) / np.abs(c64)))
+        if not gaps[name] <= F32_RTOL:
+            raise AssertionError(f"{name}: f32 card {gaps[name]:.3g} from f64 CPU")
+    summary["f32_vs_f64"] = gaps
+    say(f"phase 13 f32 on the card vs f64 on the CPU, {ms_}x{ns_} r{ks_} T{Ts} P{Ps} "
+        f"(chcnmf p {ps}), {SMALL_ITERS} iterations, cost traces: {json.dumps(gaps)}")
+    say(f"phase 13 {json.dumps(summary)}")
+
+
 def main():
     import torch
     phase0_device(torch)
@@ -1300,6 +1567,15 @@ def main():
     launches = {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
     launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
     say(f"phase 12 kernel launches in phases 11-12: {json.dumps(launches)}")
+    # Phase 13 ports modules that reach no pallas_call: no kernel may launch.
+    fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
+    dk.kl_phi_dot_ht_dma_launches = 0
+    phase13_convolutive(torch, V)
+    launches = {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
+    launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
+    say(f"phase 13 kernel launches in phase 13: {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 13 launched a kernel: {launches}")
     del V
 
     def per_iter(name):

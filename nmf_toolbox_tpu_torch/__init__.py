@@ -9,13 +9,19 @@ built with ``nvcc`` at first use; on CPU tensors their plain PyTorch
 versions run instead.
 """
 from .core import EPS, Result
-from .models import (chnmf, constrainednmf, convexnmf, lnmf, nmf, nmf_batched,
-                     nmf_encode, nmf_encode_streaming, nmf_hals, nmf_multiseed,
-                     nmf_streaming, seminmf, symnmf)
+from .models import (chcnmf, chnmf, cnmf, cnmf_encode, constrainednmf, convexnmf,
+                     lnmf, nmf, nmf2d, nmf2d_encode, nmf_batched, nmf_encode,
+                     nmf_encode_streaming, nmf_hals, nmf_multiseed, nmf_streaming,
+                     seminmf, symnmf)
+from .ops.shift import reconstruct
 from .rank import consensus_stability, estimate_rank_svd, pick_rank
 
-__all__ = ["EPS", "Result", "nmf", "lnmf", "seminmf", "convexnmf", "chnmf",
+reconstruct_from_decomposition = reconstruct  # the reference's name
+
+__all__ = ["EPS", "Result", "reconstruct", "reconstruct_from_decomposition",
+           "nmf", "lnmf", "seminmf", "convexnmf", "chnmf", "cnmf", "chcnmf",
            "constrainednmf", "nmf_hals", "nmf_streaming", "nmf_encode_streaming",
-           "nmf_batched", "nmf_multiseed", "nmf_encode", "symnmf", "pick_rank",
-           "consensus_stability", "estimate_rank_svd"]
+           "nmf_batched", "nmf_multiseed", "nmf_encode", "cnmf_encode", "nmf2d",
+           "nmf2d_encode", "symnmf", "pick_rank", "consensus_stability",
+           "estimate_rank_svd"]
 __version__ = "1.1.0"  # the distribution's version (pyproject.toml)

@@ -23,7 +23,10 @@ def factors_from_numpy(obj, *, device=None, dtype=None, fields=("W", "H")):
     ``device="cpu"``) in ``dtype`` (default: the arrays' own dtype), ready
     to pass as a solver's inits: ``W_init=``/``H_init=``, chnmf's and
     convexnmf's ``G_init=``/``S_init=``, constrainednmf's ``Z_init=``,
-    symnmf's (n, k) ``H_init=``, ``nmf_streaming``'s ``W_init=``.
+    symnmf's (n, k) ``H_init=``, ``nmf_streaming``'s ``W_init=``, and the
+    convolutive family's 3-D factors: cnmf's and nmf2d's W (m, k, T)
+    (also the dictionary of ``cnmf_encode`` / ``nmf2d_encode``), nmf2d's
+    H (k, n, P) and chcnmf's G (p, k, T).
     """
     get = obj.get if isinstance(obj, dict) else (lambda f: getattr(obj, f, None))
     found = [get(f) for f in fields]

@@ -1,13 +1,16 @@
 """Batched NMF: many small problems, or many restarts of one, in one solve.
 
-PyTorch counterpart of the ``nmf_batched``, ``nmf_multiseed`` and
-``nmf_encode`` engines of ``nmf_toolbox_tpu/models/batched.py``.  Serving
+PyTorch counterpart of the ``nmf_batched``, ``nmf_multiseed``,
+``nmf_encode``, ``cnmf_encode`` and ``nmf2d_encode`` engines of
+``nmf_toolbox_tpu/models/batched.py``.  Serving
 factorizes many small matrices (per-utterance spectrograms, per-user
 blocks) rather than one large one; rank selection restarts one matrix
 many times.  The JAX engines ``vmap`` the single-problem step under
 ``lax.scan``; here each step is written on batched tensors — W (B, m, k),
 H (B, k, n), and V (B, m, n) or one (m, n) shared by every restart — so
 each product of an iteration is one batched matmul for all problems.
+The convolutive encoders run H (B, k, n) or (B, k, n, P) through the
+shift operators of ``ops/shift.py``, whose GEMMs broadcast over the batch.
 
 The engines run a fixed iteration count with no stop rule (a converged
 problem keeps iterating harmlessly; MU is a fixed point) and return one
@@ -29,8 +32,11 @@ from ..core import (Result, as_list, as_tensor, common_scalars, merge_config,
                     torch_dtype, uniform_init, unwrap_sources)
 from ..ops import divergence as dv
 from ..ops import loop as looplib
-from ..ops.gram import euclidean_cost_gram, sq_norm, vdot
-from ..ops.normalize import unit_l2_columns
+from ..ops.gram import (conv_cross_grams_w, conv_euclidean_cost_gram,
+                        conv_wt_vhat_gram, euclidean_cost_gram, sq_norm, vdot)
+from ..ops.normalize import cross_frame_norm, unit_l2_columns
+from ..ops.shift import (conv_reconstruct, conv_reconstruct_2d, conv_wt_phi,
+                         conv_wt_phi_2d)
 
 MATRIX = (-2, -1)  # the dimensions a per-problem sum runs over
 
@@ -50,6 +56,7 @@ class _EncSpec(NamedTuple):
     alpha: float = 1.0
     beta: float = 1.0
     cost_every: int = 1
+    P: int = 1  # nmf2d_encode's pitch shifts
 
 
 def _v_ht(V, H):
@@ -179,6 +186,76 @@ def _solve_encode(spec: _EncSpec, Vs, W, H0, hsp, Mw=None):
             H = H * (neg / torch.clamp_min(pos + hsp[:, None], eps))
             return H, lambda: (dv.cost(spec.div, Vs, W @ H, a, b, weights=Mw,
                                        dim=MATRIX) + penalty(H))
+
+    with torch.no_grad():
+        return _scan(step, H0, spec.iters, spec.cost_every, cdt)
+
+
+def _solve_conv_encode(spec: _EncSpec, Vs, W, H0, hsp, Mw=None):
+    """H-only convolutive MU of every problem against ONE dictionary W
+    (m, k, T), on device tensors, with no host sync.  Per problem it is
+    ``cnmf(V_i, k, T, W_init=W, W_fixed=True)``: euclidean without
+    weights follows cnmf's Gram step, whose only V term conv_wt_phi(W, V)
+    is loop-invariant and computed once, so its iterations run in
+    (T, T, k, k) Gram space; KL without weights follows cnmf's naive step
+    with the reference's no-shift ones field (cnmf.m:220-224), sum(W)
+    hoisted; the other divergences and every weighted run recompute both
+    shifted fields.  Returns (H, costs (B, iters))."""
+    a, b, eps = spec.alpha, spec.beta, spec.eps
+    cdt = torch.promote_types(W.dtype, torch.float32)
+
+    def penalty(H):
+        return torch.sum(hsp * torch.sum(torch.abs(H), dim=-1), dim=-1)
+
+    if spec.div == "euclidean" and Mw is None:
+        v_sq = sq_norm(Vs, dim=MATRIX)
+        WW = conv_cross_grams_w(W)       # (T, T, k, k)
+        Gneg = conv_wt_phi(W, Vs)        # (B, k, n), once
+
+        def step(H):
+            H = H * (Gneg / torch.clamp_min(conv_wt_vhat_gram(WW, H) + hsp[:, None], eps))
+            # the objective's own cross-Grams of H, skipped under cost_every > 1
+            return H, lambda: conv_euclidean_cost_gram(v_sq, Gneg, WW, H) + penalty(H)
+    else:
+        kl_pos = torch.sum(W, dim=(0, 2))[:, None] if spec.div == "kl" and Mw is None else None
+
+        def step(H):
+            phi_neg, phi_pos, power = dv.ab_fields(Vs, conv_reconstruct(W, H), a, b,
+                                                   weights=Mw)
+            gneg = dv.apply_power(conv_wt_phi(W, phi_neg), power)
+            gpos = kl_pos if kl_pos is not None else dv.apply_power(
+                conv_wt_phi(W, phi_pos), power)
+            H = H * (gneg / torch.clamp_min(gpos + hsp[:, None], eps))
+            return H, lambda: (dv.cost(spec.div, Vs, conv_reconstruct(W, H), a, b,
+                                       weights=Mw, dim=MATRIX) + penalty(H))
+
+    with torch.no_grad():
+        return _scan(step, H0, spec.iters, spec.cost_every, cdt)
+
+
+def _solve_nmf2d_encode(spec: _EncSpec, Vs, W, H0, hsp):
+    """H-only 2-D deconvolutional MU of every problem against ONE
+    dictionary W (m, k, T) with ``spec.P`` pitch shifts, on device
+    tensors, with no host sync: per problem ``nmf2d(V_i, k, T, P,
+    W_init=W, W_fixed=True)``.  Loop-invariant: euclidean's V gradient
+    and KL's shifted ones-field gradient.  Returns (H, costs (B, iters))."""
+    a, b, eps, P = spec.alpha, spec.beta, spec.eps, spec.P
+    cdt = torch.promote_types(W.dtype, torch.float32)
+    gneg_v = conv_wt_phi_2d(W, Vs, P) if spec.div == "euclidean" else None
+    gpos_kl = None
+    if spec.div == "kl":
+        gpos_kl = conv_wt_phi_2d(W, torch.ones(Vs.shape[1:], dtype=W.dtype,
+                                               device=W.device), P)
+
+    def step(H):
+        phi_neg, phi_pos, power = dv.ab_fields(Vs, conv_reconstruct_2d(W, H), a, b)
+        gneg = gneg_v if gneg_v is not None else conv_wt_phi_2d(W, phi_neg, P)
+        gpos = gpos_kl if gpos_kl is not None else conv_wt_phi_2d(W, phi_pos, P)
+        gneg, gpos = dv.apply_power(gneg, power), dv.apply_power(gpos, power)
+        H = H * (gneg / torch.clamp_min(gpos + hsp[:, None, None], eps))
+        return H, lambda: (dv.cost(spec.div, Vs, conv_reconstruct_2d(W, H), a, b,
+                                   dim=MATRIX)
+                           + torch.sum(hsp * torch.sum(torch.abs(H), dim=(-2, -1)), dim=-1))
 
     with torch.no_grad():
         return _scan(step, H0, spec.iters, spec.cost_every, cdt)
@@ -444,3 +521,147 @@ def nmf_encode(Vs, W, config: dict | None = None, **kwargs):
     H, costs = _solve_encode(spec, Vs, W, H0, hsp, Mw)
     return _result(unwrap_sources(W, blocks, 1, w_was_seq),
                    unwrap_sources(H, blocks, 1, w_was_seq), costs, maxiter)
+
+
+def _encode_prelude(cfg, Vs, name, single):
+    """The config checks the convolutive encoders share, then Vs as a
+    (B, m, n) tensor on the run's device: (div, alpha, beta, Vs)."""
+    reject_mesh(cfg)
+    div = dv.canon(cfg.get("divergence", "euclidean"))
+    alpha, beta = dv.ab_params(div, cfg.get("alpha", 1.0), cfg.get("beta", 1.0))
+    if div == "ab" and alpha == 0.0 and beta == 0.0:
+        raise ValueError("alpha = 0 and beta = 0 is not supported at this time.")
+    _reject_encode_config(cfg, name)
+    if cfg.get("data_dtype") is not None:
+        raise ValueError(f"{name}: data_dtype is not supported — the one-time V "
+                         "gradient and the field paths read V at compute precision")
+    device = resolve_device(Vs, cfg.get("device"))
+    Vs = as_tensor(Vs, resolve_dtype(Vs, cfg.get("dtype")), device)
+    if Vs.ndim != 3:
+        raise ValueError(f"{name} expects Vs of shape (B, m, n); got "
+                         f"{tuple(Vs.shape)} (encode a single matrix with {single})")
+    return div, alpha, beta, Vs
+
+
+def cnmf_encode(Vs, W, config: dict | None = None, **kwargs):
+    """Encode a batch Vs (B, m, n) against ONE frozen CONVOLUTIVE
+    dictionary W (m, k, T): the serving decoder for dictionaries ``cnmf``
+    trained (each incoming spectrogram fits only its encoding).
+
+    Per-problem trajectories are exactly ``cnmf(V_i, k, T, W_init=W,
+    W_fixed=True)``, including the entry cross-frame normalization of W
+    (cnmf.m:157-166; its norms move into the H inits, the identity for a
+    dictionary ``cnmf`` trained) and, for KL, the reference's no-shift
+    ones-field quirk (cnmf.m:220-224).  Euclidean iterations never touch
+    V: after a one-time conv_wt_phi(W, V) per problem each step runs in
+    (T, T, k, k) Gram space.
+
+    Parameters: divergence ('euclidean' | 'kl' | 'is' | 'ab' with
+    alpha/beta, the alpha = 0 dual included), H_init (B, k, n) or a
+    per-source list, H_sparsity (scalar or per source), weights ((m, n)
+    shared or (B, m, n) per problem, nonnegative; the positive field is
+    then shifted, as in ``cnmf``), maxiter (100), seed, dtype, eps,
+    cost_every (objective every N iterations; H is bit-identical), device;
+    ``device_output`` changes nothing, ``data_dtype`` is rejected and
+    ``mesh`` raises ``NotImplementedError``.  W may be a LIST of
+    per-source dictionaries sharing one T; W/H then return as per-source
+    lists.  Returns Result with W (m, k, T, normalized) and H (B, k, n)
+    tensors on the run's device and cost (B, maxiter), NumPy.
+    """
+    cfg = merge_config(config, kwargs)
+    div, alpha, beta, Vs = _encode_prelude(
+        cfg, Vs, "cnmf_encode", "cnmf(V, k, T, W_init=W, W_fixed=True)")
+    B, m, n = Vs.shape
+    dtype, device = Vs.dtype, Vs.device
+    w_list, w_was_seq = as_list(W)
+    w_list = [as_tensor(w, dtype, device) for w in w_list]
+    S = len(w_list)
+    for s, w in enumerate(w_list):
+        if w.ndim != 3 or w.shape[0] != m:
+            raise ValueError(f"convolutive dictionary W[{s}] must be (m, k, T) "
+                             f"with m = {m}; got {tuple(w.shape)}")
+        if w.shape[2] != w_list[0].shape[2]:
+            raise ValueError("all source dictionaries must share the same context "
+                             f"length; got T={w.shape[2]} vs {w_list[0].shape[2]}")
+    ks = [w.shape[1] for w in w_list]
+    blocks = source_blocks(ks)
+    W = torch.cat(w_list, dim=1)
+    k, T = W.shape[1], W.shape[2]
+    maxiter, _, eps, gen = common_scalars(cfg)
+
+    H0 = cfg.get("H_init")
+    if H0 is None:
+        H0 = uniform_init(gen, (B, k, n), dtype, device)
+    elif isinstance(H0, (list, tuple)):
+        if len(H0) != S:
+            raise ValueError(f"Requested {S} sources. Given {len(H0)} "
+                             "initial encoding matrices.")
+        H0 = torch.cat([as_tensor(h, dtype, device) for h in H0], dim=1)
+    H0 = as_tensor(H0, dtype, device)
+    if tuple(H0.shape) != (B, k, n):
+        raise ValueError(f"H_init must be {(B, k, n)}; got {tuple(H0.shape)}")
+    W, H0 = cross_frame_norm(W, H0, T)  # cnmf.m:157-166, W_fixed included
+    h_sp = [max(float(v), 0.0) for v in
+            promote_per_source(cfg.get("H_sparsity"), S, "H_sparsity", 0.0)]
+    hsp = per_column(h_sp, ks, dtype, device)
+    Mw = _encode_weights_of(cfg, B, m, n, "cnmf_encode", dtype, device)
+
+    spec = _EncSpec(maxiter, eps, div, alpha, beta, parse_cost_every(cfg))
+    H, costs = _solve_conv_encode(spec, Vs, W, H0, hsp, Mw)
+    return _result(unwrap_sources(W, blocks, 1, w_was_seq),
+                   unwrap_sources(H, blocks, 1, w_was_seq), costs, maxiter)
+
+
+def nmf2d_encode(Vs, W, pitch_len: int, config: dict | None = None, **kwargs):
+    """Encode a batch Vs (B, m, n) against ONE frozen 2-D deconvolutional
+    dictionary W (m, k, T) with ``pitch_len`` frequency shifts: batched
+    pitch-invariant transcription, each problem's H (k, n, P) a piano roll
+    of the frozen note shapes.
+
+    Per-problem trajectories are exactly ``nmf2d(V_i, k, T, P, W_init=W,
+    W_fixed=True)``, including the entry cross-frame normalization with
+    norm transfer into every problem's H init.  Euclidean iterations
+    never read V after a one-time per-problem gradient; KL hoists its
+    shifted ones-field gradient.
+
+    Parameters: divergence ('euclidean' | 'kl' | 'is' | 'ab' with
+    alpha/beta, the alpha = 0 dual included), H_init (B, k, n, P),
+    H_sparsity (scalar), maxiter (100), seed, dtype, eps, cost_every,
+    device; ``device_output`` changes nothing, ``weights`` and
+    ``data_dtype`` are rejected and ``mesh`` raises
+    ``NotImplementedError``.  Returns Result with W (m, k, T, normalized)
+    and H (B, k, n, P) tensors on the run's device and cost (B, maxiter),
+    NumPy.
+    """
+    cfg = merge_config(config, kwargs)
+    div, alpha, beta, Vs = _encode_prelude(
+        cfg, Vs, "nmf2d_encode", "nmf2d(V, k, T, P, W_init=W, W_fixed=True)")
+    if cfg.get("weights") is not None:
+        raise ValueError("nmf2d_encode: weights= is not supported")
+    B, m, n = Vs.shape
+    dtype, device = Vs.dtype, Vs.device
+    P = int(pitch_len)
+    if P < 1 or P > m:
+        raise ValueError(f"pitch_len must be in [1, {m}]; got {P}")
+    W = as_tensor(W, dtype, device)
+    if W.ndim != 3 or W.shape[0] != m:
+        raise ValueError(f"dictionary W must be (m, k, T) with m = {m}; "
+                         f"got {tuple(W.shape)}")
+    k, T = W.shape[1], W.shape[2]
+    maxiter, _, eps, gen = common_scalars(cfg)
+
+    H0 = cfg.get("H_init")
+    H0 = (uniform_init(gen, (B, k, n, P), dtype, device) if H0 is None
+          else as_tensor(H0, dtype, device))
+    if tuple(H0.shape) != (B, k, n, P):
+        raise ValueError(f"H_init must be {(B, k, n, P)}; got {tuple(H0.shape)}")
+    # entry normalization with norm transfer into every problem's init
+    # (models/nmf2d.py's convention, W_fixed included)
+    W, norms = cross_frame_norm(W, None, T, return_norms=True)
+    H0 = H0 * norms[None, :, None, None]
+    hsp = torch.full((k,), max(float(cfg.get("H_sparsity") or 0.0), 0.0),
+                     dtype=dtype, device=device)
+
+    spec = _EncSpec(maxiter, eps, div, alpha, beta, parse_cost_every(cfg), P)
+    H, costs = _solve_nmf2d_encode(spec, Vs, W, H0, hsp)
+    return _result(W, H, costs, maxiter)

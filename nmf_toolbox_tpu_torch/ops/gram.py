@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .shift import shift_sum, stack_shifts_right
+
 
 def pos_neg_split(A):
     """Return (A_pos, A_neg) with A = A_pos - A_neg, both non-negative."""
@@ -73,5 +75,26 @@ def conv_cross_grams_w(W):
 
 
 def conv_cross_grams_h(Hs):
-    """HH[t, s] = Hs[t] @ Hs[s]'  -> (T, T, k, k) for stacked shifted H."""
-    return torch.einsum("tkn,sln->tskl", Hs, Hs)
+    """HH[t, s] = Hs[t] @ Hs[s]'  -> (..., T, T, k, k) for stacked shifted H
+    (..., T, k, n); leading dimensions are a batch of problems."""
+    return torch.einsum("...tkn,...sln->...tskl", Hs, Hs)
+
+
+def conv_wt_vhat_gram(WW, H):
+    """conv_wt_phi(W, conv_reconstruct(W, H)) -> (..., k, n) from the
+    cross-Grams WW = conv_cross_grams_w(W): sum_t shift_left(sum_s
+    W_t' W_s Hs[s], t), with no m-by-n reconstruction.  Leading
+    dimensions of H are a batch of problems."""
+    Hs = stack_shifts_right(H, WW.shape[0])
+    return shift_sum(torch.einsum("tskl,...sln->...tkn", WW, Hs))
+
+
+def conv_euclidean_cost_gram(v_sq, WtV, WW, H):
+    """0.5*||V - conv_reconstruct(W, H)||^2 = 0.5*(||V||^2
+    - 2<conv_wt_phi(W, V), H> + <WW, HH>), HH the cross-Grams of H's
+    shift stack, clamped at zero as :func:`euclidean_cost_gram`.  Leading
+    dimensions of H (and of v_sq and WtV) are a batch: one cost each."""
+    HH = conv_cross_grams_h(stack_shifts_right(H, WW.shape[0]))
+    c = 0.5 * (v_sq - 2.0 * torch.sum(WtV * H, dim=(-2, -1))
+               + torch.sum(WW * HH, dim=(-4, -3, -2, -1)))
+    return torch.clamp_min(c, 0.0)
