@@ -129,7 +129,34 @@ without printing the last line:
    f32 on the card (NumPy inputs, no ``device=``) within 1e-4 relative of
    its f64 run on the CPU, cost traces at 129x400 r8 T4 P3 (chcnmf p = 40)
    over 50 iterations.  The kernel counters, set to 0 before phase 13,
-   must read 0 after it: the JAX modules it ports reach no pallas_call.
+   must read 0 after it: the JAX modules it ports reach no pallas_call;
+14. the projected-gradient and complex solvers and the audio front end at
+   the JAX package's shapes for them, f32, TF32 off.  ``nmfsc`` at
+   BASELINE #2's 5000x2000 r50 with H_sparsity 0.6, V uniform in [0.1, 1]
+   (benchmarks/run_all.py:162-208), at linesearch_width 0 and 8: ms and
+   host reads (``core.host_reads``) per iteration from calls of 2 and 22
+   iterations, the two widths' traces within rtol 1e-3; ``nmfsc`` at
+   100 000x10 000 r200 on phase 7's V with W_sparsity 0.5 and H_sparsity
+   0.6, ms/iter and ``profile_device_ms``' split; ``cnmfsc`` at 513x10 000
+   r64 T8 with H_sparsity 0.5 (benchmarks/cnmfsc_marginal_tpu.py:31-41),
+   and with W_sparsity 0.5 too (which ends on a line-search underflow in
+   its first iteration, as the reference does), ms/iter, reads and the
+   idle share of one call; ``cmfwisa`` complex64 at 513x5000 r32
+   (run_all.py:231-269), one source and two (16 + 16); ``cmfwisa_encode``
+   on phase 9's batch with uniform random phases, median ms per call,
+   problems 0 and 255 against ``cmfwisa(W_fixed=True)`` as phase 9 holds
+   its encoders, the solve under set_sync_debug_mode("error"); the audio
+   path on a synthetic two-source waveform (n_fft 1024, hop 256, 513 x
+   5000 frames): ``istft(stft(x))`` within 1e-5 of x, two-source
+   ``cmfwisa`` and ``separate_waveforms`` (the estimates sum to
+   ``istft(Z)`` within 1e-4), 32 ``griffinlim`` iterations, ms each; the
+   goldens nmfsc_sparse, cnmfsc_sparse and cmfwisa in f64 at
+   tests/test_goldens.py's tolerances; f32 on the card (NumPy inputs, no
+   ``device=``) against f64 on the CPU: cmfwisa's cost trace within 1e-4,
+   nmfsc's and cnmfsc's final cost within 1e-3 relative, with whether
+   their step sizes agreed; every nmfsc / cnmfsc trace non-increasing
+   within 1e-5 relative.  The kernel counters, set to 0 before phase 14,
+   must read 0 after it.
 
 Then a JSON line of per-kernel results and, last, the device line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
@@ -193,6 +220,17 @@ CONV_ENCODE_T, NMF2D_ENCODE_TP = 4, (3, 4)  # benchmarks/batched_serving_tpu.py:
 CONV_SMALL = (129, 400, 8, 4, 3, 40)  # m, n, k, T, P, p: phase 13's f32 card vs f64 CPU runs
 CONV_GOLDEN_TOL = {"cnmf_euclid": 1e-8, "chcnmf": 1e-8, "nmf2d_kl": 1e-9}  # test_goldens.py
 F32_RTOL = 1e-4       # f32 on the card vs f64 on the CPU, cost traces
+SPARSE_BASE = (5000, 2000, 50)  # nmfsc, BASELINE #2: benchmarks/run_all.py:162-208
+SPARSE_WIDTHS = (0, 8)  # linesearch_width: sequential, and the JAX package's TPU width
+SPARSE_ITERS = 20      # phase 14's timed iterations (calls of 2 and 22)
+SPARSE_MONO = 1e-5     # nmfsc / cnmfsc traces non-increasing within this, relative
+WIDTH_RTOL = 1e-3      # widths 0 and 8: cost traces (the JAX package measured ~4e-5)
+SPARSE_F32_RTOL = 1e-3  # nmfsc / cnmfsc final cost, f32 card vs f64 CPU
+CMF = (513, 5000, 32)  # cmfwisa complex64: benchmarks/run_all.py:231-269
+AUDIO = (1024, 256, 5000, 20, 32)  # n_fft, hop, frames, cmfwisa and griffinlim iterations
+AUDIO_ATOL = (1e-5, 1e-4)  # istft(stft(x)) vs x; the separated sum vs istft(Z)
+SPARSE_SMALL = (200, 300, 10, 4)  # m, n, k, T of phase 14's f32-vs-f64 runs (cnmfsc: 129 bins)
+SPARSE_GOLDEN_TOL = {"nmfsc_sparse": 1e-9, "cnmfsc_sparse": 1e-9, "cmfwisa": 1e-9}  # test_goldens.py
 GOLDEN_ATOL = GOLDEN_RTOL = 1e-9  # tests/test_goldens.py, f64
 NEVER = 1e-30         # a tolerance no stop rule meets (0 falls back to 1e-3)
 SLEEP_CYCLES = 10 ** 9  # ~0.5 s of device clock ahead of each gated solve
@@ -1294,21 +1332,21 @@ def phase12_gram_family(torch, V):
     say(f"phase 12 {json.dumps(summary)}")
 
 
-def per_iter_ms(torch, calls):
+def per_iter_ms(torch, calls, iters=CONV_ITERS, phase=13):
     """name -> call(iters): ms per iteration from calls of 2 and
-    2 + CONV_ITERS iterations after a warm-up, so one-time work drops out;
+    2 + ``iters`` iterations after a warm-up, so one-time work drops out;
     each run finite with all its iterations.  Returns name -> (ms/iter,
     the longer run's Result)."""
     out = {}
     for name, call in calls.items():
         call(2)  # warm-up
-        (_, ms2), (res, ms22) = (wall_ms(torch, lambda: call(it)) for it in (2, 2 + CONV_ITERS))
+        (_, ms2), (res, ms22) = (wall_ms(torch, lambda: call(it)) for it in (2, 2 + iters))
         c = np.asarray(res.cost)
-        if res.n_iters != 2 + CONV_ITERS or not np.all(np.isfinite(c)):
+        if res.n_iters != 2 + iters or not np.all(np.isfinite(c)):
             raise AssertionError(f"{name}: n_iters {res.n_iters}, cost {c}")
-        out[name] = ((ms22 - ms2) / CONV_ITERS, res)
-        say(f"phase 13 {name}: {out[name][0]:.3f} ms/iter (calls of 2 and "
-            f"{2 + CONV_ITERS} iterations: {ms2:.1f} and {ms22:.1f} ms), final cost "
+        out[name] = ((ms22 - ms2) / iters, res)
+        say(f"phase {phase} {name}: {out[name][0]:.3f} ms/iter (calls of 2 and "
+            f"{2 + iters} iterations: {ms2:.1f} and {ms22:.1f} ms), final cost "
             f"{c[-1]:.7g}")
     return out
 
@@ -1527,6 +1565,314 @@ def phase13_convolutive(torch, V_big):
     say(f"phase 13 {json.dumps(summary)}")
 
 
+def sparse_timing(torch, name, call):
+    """ms and host reads (``core.host_reads``) per iteration of
+    ``call(iters)`` from calls of 2 and 2 + SPARSE_ITERS iterations after
+    a warm-up; the trace finite and non-increasing within SPARSE_MONO
+    relative.  A solve that ends on a line-search underflow (cnmfsc with
+    a sparse W does in its first iteration, as the reference does) is
+    reported per executed iteration of the longer call."""
+    from nmf_toolbox_tpu_torch import core
+    call(2)  # warm-up
+    r0 = core.host_reads
+    short, ms2 = wall_ms(torch, lambda: call(2))
+    r1 = core.host_reads
+    res, ms22 = wall_ms(torch, lambda: call(2 + SPARSE_ITERS))
+    r2 = core.host_reads
+    c = np.asarray(res.cost, np.float64)
+    if not np.all(np.isfinite(c)) or not np.all(np.diff(c) <= SPARSE_MONO * np.abs(c[:-1])):
+        raise AssertionError(f"{name}: cost trace not finite or not non-increasing: {c}")
+    if not bool(torch.isfinite(res.W).all() & torch.isfinite(res.H).all()):
+        raise AssertionError(f"{name}: factors not finite")
+    done = res.n_iters - short.n_iters
+    if done > 0:
+        out = {"ms_per_iter": (ms22 - ms2) / done,
+               "reads_per_iter": ((r2 - r1) - (r1 - r0)) / done}
+    else:  # both calls ended on the same underflow: the whole call per iteration
+        out = {"ms_per_iter": ms22 / res.n_iters, "reads_per_iter": (r2 - r1) / res.n_iters}
+    out.update(n_iters=res.n_iters, ended_on_underflow=res.n_iters < 2 + SPARSE_ITERS,
+               final_cost=float(c[-1]), ms_calls=(ms2, ms22))
+    say(f"phase 14 {name}: {out['ms_per_iter']:.3f} ms/iter, {out['reads_per_iter']:.2f} "
+        f"host reads/iter (calls of 2 and {2 + SPARSE_ITERS}: {ms2:.1f} and {ms22:.1f} ms, "
+        f"{short.n_iters} and {res.n_iters} iterations"
+        + (", ended on a line-search underflow" if out["ended_on_underflow"] else "")
+        + f"), final cost {c[-1]:.7g}")
+    return out, res
+
+
+def sparse_golden_runs(tt, dev):
+    """The goldens of this slice as tests/test_goldens.py runs them:
+    name -> (run(g), fields held at its tolerance)."""
+    f64 = dict(tolerance=1e-12, dtype=np.float64, device=dev)
+    return {
+        "nmfsc_sparse": (lambda g: tt.nmfsc(
+            g["V"], g["W0"].shape[1], W_init=g["W0"], H_init=g["H0"], W_sparsity=0.5,
+            H_sparsity=0.6, maxiter=12, **f64), ("W",)),
+        "cnmfsc_sparse": (lambda g: tt.cnmfsc(
+            g["V"], g["W0"].shape[1], int(g["T"]), W_init=g["W0"], H_init=g["H0"],
+            W_sparsity=float(g["W_sparsity"]), H_sparsity=float(g["H_sparsity"]),
+            maxiter=10, **f64), ("W", "H")),
+        "cmfwisa": (lambda g: tt.cmfwisa(
+            g["V"], g["W0"].shape[1], W_init=g["W0"], H_init=g["H0"],
+            H_sparsity=float(g["H_sparsity"]), maxiter=15, tolerance=1e-12,
+            dtype=np.complex128, device=dev), ("W", "H", "P")),
+    }
+
+
+def sparse_small_calls(tt, ini, **kw):
+    """Phase 14's f32-vs-f64 runs: name -> call()."""
+    kw = dict(maxiter=SMALL_ITERS, tolerance=NEVER, **kw)
+    _, _, k, T = SPARSE_SMALL
+    return {
+        "nmfsc": lambda: tt.nmfsc(ini["V"], k, W_init=ini["W"], H_init=ini["H"],
+                                  W_sparsity=0.5, H_sparsity=0.6, **kw),
+        "cnmfsc": lambda: tt.cnmfsc(ini["Vc"], k, T, W_init=ini["W3"], H_init=ini["H"],
+                                    H_sparsity=0.5, **kw),
+        "cmfwisa": lambda: tt.cmfwisa(ini["Z"], k, W_init=ini["W"][:129], H_init=ini["H"],
+                                      H_sparsity=0.1, **kw),
+    }
+
+
+def two_source_signal(n_fft, hop, frames):
+    """A tonal source (two steady sines with a slow vibrato) and a
+    percussive one (decaying noise bursts), at 16 kHz, long enough for
+    ``frames`` centered STFT frames; f32."""
+    rng = np.random.default_rng(14)
+    t = np.arange(hop * (frames - 1)) / 16_000
+    a = 0.5 * np.sin(2 * np.pi * 440 * t + 2 * np.sin(2 * np.pi * 0.5 * t)) \
+        + 0.3 * np.sin(2 * np.pi * 660 * t)
+    b = np.zeros_like(t)
+    for i in range(800, len(t) - 2000, 4000):
+        b[i: i + 2000] += 0.8 * rng.normal(size=2000) * np.exp(-np.arange(2000) / 300.0)
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def phase14_sparse_complex_audio(torch, V_big):
+    """The projected-gradient and complex solvers and the audio front end
+    at the JAX package's shapes for them, f32, TF32 off: ms per iteration
+    and host reads per iteration, both line-search widths, the encoder
+    per call, the audio path, the goldens in f64, and f32 on the card
+    against f64 on the CPU."""
+    import nmf_toolbox_tpu_torch as tt
+    from nmf_toolbox_tpu_torch.core import EPS
+    from nmf_toolbox_tpu_torch.models import batched as tb
+    summary = {"ms_per_iter": {}, "reads_per_iter": {}}
+
+    def keep(name, out):
+        summary["ms_per_iter"][name] = out["ms_per_iter"]
+        summary["reads_per_iter"][name] = out["reads_per_iter"]
+
+    # a: nmfsc at BASELINE #2, both line-search widths
+    m, n, k = SPARSE_BASE
+    g = torch.Generator(device="cuda").manual_seed(15)
+    V = 0.1 + 0.9 * torch.rand((m, n), generator=g, device="cuda")
+    W0 = torch.rand((m, k), generator=g, device="cuda")
+    H0 = torch.rand((k, n), generator=g, device="cuda")
+    traces = {}
+    for w in SPARSE_WIDTHS:
+        name = f"nmfsc H_sparsity 0.6 {m}x{n} r{k} width {w}"
+        out, res = sparse_timing(torch, name, lambda it: tt.nmfsc(
+            V, k, W_init=W0, H_init=H0, H_sparsity=0.6, maxiter=it, tolerance=NEVER,
+            linesearch_width=w))
+        keep(name, out)
+        traces[w] = np.asarray(res.cost, np.float64)
+    a, b = (traces[w] for w in SPARSE_WIDTHS)
+    gap = float(np.max(np.abs(a - b) / np.abs(a))) if len(a) == len(b) else np.inf
+    if not gap <= WIDTH_RTOL:
+        raise AssertionError(f"nmfsc widths {SPARSE_WIDTHS}: traces {gap:.3g} apart")
+    summary["widths_gap"] = gap
+    say(f"phase 14 nmfsc widths {SPARSE_WIDTHS[0]} and {SPARSE_WIDTHS[1]}: cost traces "
+        f"{gap:.3g} apart (allowed rtol {WIDTH_RTOL})")
+    del V, W0, H0
+
+    # b: nmfsc at full width on phase 7's V, both factors sparse
+    m, n = V_big.shape
+    k = GRAM[2]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    W0 = torch.rand((m, k), generator=g, device="cuda")
+    H0 = torch.rand((k, n), generator=g, device="cuda")
+    name = f"nmfsc W_sparsity 0.5 H_sparsity 0.6 {m}x{n} r{k}"
+    call = lambda it: tt.nmfsc(V_big, k, W_init=W0, H_init=H0, W_sparsity=0.5,  # noqa: E731
+                               H_sparsity=0.6, maxiter=it, tolerance=NEVER)
+    out, _ = sparse_timing(torch, name, call)
+    keep(name, out)
+    prof = profile_device_ms(torch, lambda: call(ITERS), ITERS)
+    summary["profile_nmfsc_full"] = prof
+    say(f"phase 14 profile {name}, {ITERS} iterations with the one-time work: {json.dumps(prof)}")
+    del W0, H0
+
+    # c: cnmfsc at 513x10 000 r64 T8, H sparse, then W sparse too
+    m, n, k, T = CONV
+    g = torch.Generator(device="cuda").manual_seed(17)
+    V = 0.1 + 0.9 * torch.rand((m, n), generator=g, device="cuda")
+    W0 = 0.1 + 0.9 * torch.rand((m, k, T), generator=g, device="cuda")
+    H0 = torch.rand((k, n), generator=g, device="cuda")
+    for extra in ({}, {"W_sparsity": 0.5}):
+        name = f"cnmfsc H_sparsity 0.5{' W_sparsity 0.5' if extra else ''} {m}x{n} r{k} T{T}"
+        call = lambda it: tt.cnmfsc(V, k, T, W_init=W0, H_init=H0, H_sparsity=0.5,  # noqa: E731
+                                    maxiter=it, tolerance=NEVER, **extra)
+        out, _ = sparse_timing(torch, name, call)
+        keep(name, out)
+        iters = min(ITERS, out["n_iters"])  # a sparse W ends in its first iteration
+        prof = profile_device_ms(torch, lambda: call(ITERS), iters)
+        summary[f"idle_share {name}"] = prof["idle_share"]
+        say(f"phase 14 profile {name}, {iters} iterations with the one-time work: "
+            f"{json.dumps(prof)}")
+    del V, W0, H0
+
+    # d: cmfwisa complex64 at 513x5000 r32, one source and two
+    m, n, k = CMF
+    g = torch.Generator(device="cuda").manual_seed(18)
+    mag = torch.rand((m, n), generator=g, device="cuda")
+    Z = mag * torch.exp(1j * (2 * torch.rand((m, n), generator=g, device="cuda") - 1) * np.pi)
+    W0 = torch.rand((m, k), generator=g, device="cuda")
+    H0 = torch.rand((k, n), generator=g, device="cuda")
+    h = k // 2
+    timed = per_iter_ms(torch, {
+        f"cmfwisa complex64 {m}x{n} r{k}": lambda it: tt.cmfwisa(
+            Z, k, W_init=W0, H_init=H0, maxiter=it, tolerance=NEVER),
+        f"cmfwisa complex64 {m}x{n} r{h}+{h}": lambda it: tt.cmfwisa(
+            Z, [h, h], W_init=[W0[:, :h], W0[:, h:]], H_init=[H0[:h], H0[h:]],
+            maxiter=it, tolerance=NEVER),
+    }, iters=SPARSE_ITERS, phase=14)
+    summary["ms_per_iter"].update({name: ms for name, (ms, _) in timed.items()})
+    del Z, mag, W0, H0, timed
+
+    # e: cmfwisa_encode on phase 9's batch with uniform random phases
+    B, m, n, k = SERVING
+    rng, _, Vs = serving_batch(torch)
+    Vc = Vs * torch.exp(1j * torch.from_numpy(
+        rng.uniform(-np.pi, np.pi, (B, m, n)).astype(np.float32)).cuda())
+    Wd = torch.from_numpy(rng.gamma(2.0, 1.0, (m, k)).astype(np.float32)).cuda()
+    H0 = torch.from_numpy(rng.uniform(size=(B, k, n)).astype(np.float32)).cuda()
+    res, ms = median_ms(torch, lambda: tt.cmfwisa_encode(Vc, Wd, H_init=H0, maxiter=ENGINE_ITERS))
+    refs = {i: tt.cmfwisa(Vc[i], k, W_init=Wd, H_init=H0[i], W_fixed=True,
+                          maxiter=ENGINE_ITERS, tolerance=NEVER) for i in (0, B - 1)}
+    gap, gap_f = check_engine("cmfwisa_encode", res, torch, refs)
+    hsp = torch.zeros(k, device="cuda")
+    P0 = torch.exp(1j * torch.angle(Vc))[:, None]
+    Wn = res.W  # the normalized dictionary
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tb._solve_cmf_encode(tb._CmfEncSpec(ENGINE_ITERS, EPS, ((0, k),), (False,)),
+                             Vc, Wn, H0, P0, hsp)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    summary["cmfwisa_encode"] = {"ms_per_call": ms, "ms_per_problem": ms / B,
+                                 "cost_gap": gap, "factor_gap": gap_f}
+    say(f"phase 14 cmfwisa_encode B{B} {m}x{n} r{k} complex64, {ENGINE_ITERS} iterations: "
+        f"{ms:.2f} ms/call, {1e3 * ms / B:.2f} us/problem; problems 0 and {B - 1} against "
+        f"cmfwisa(W_fixed=True): costs {gap:.3g}, factors {gap_f:.3g} relative; the solve "
+        "ran under set_sync_debug_mode('error')")
+    del Vs, Vc, Wd, H0, P0, res, refs
+
+    # f: the audio path on a synthetic two-source waveform
+    n_fft, hop, frames, cmf_iters, gl_iters = AUDIO
+    a, b = two_source_signal(n_fft, hop, frames)
+    x = torch.from_numpy(a + b).cuda()
+    # warm-ups at the timed sizes: cuFFT plans a transform at its first call
+    tt.istft(tt.stft(x, n_fft=n_fft, hop_length=hop), hop_length=hop, length=len(x))
+    Z, stft_ms = wall_ms(torch, lambda: tt.stft(x, n_fft=n_fft, hop_length=hop))
+    y, istft_ms = wall_ms(torch, lambda: tt.istft(Z, hop_length=hop, length=len(x)))
+    err = float((y - x).abs().max())
+    if not (Z.shape == (n_fft // 2 + 1, frames) and err <= AUDIO_ATOL[0]):
+        raise AssertionError(f"stft {tuple(Z.shape)}; istft(stft(x)) {err:.3g} from x")
+    mags = [tt.magnitude(tt.stft(torch.from_numpy(s).cuda(), n_fft=n_fft, hop_length=hop))
+            for s in (a, b)]
+    W_src = [tt.nmf(M, 16, maxiter=30, seed=i).W for i, M in enumerate(mags)]
+    ks = [16, 16]
+    res, cmf_ms = wall_ms(torch, lambda: tt.cmfwisa(Z, ks, W_init=W_src, maxiter=cmf_iters,
+                                                    tolerance=NEVER, seed=3))
+    c = np.asarray(res.cost)
+    if not (res.n_iters == cmf_iters and np.all(np.isfinite(c))):
+        raise AssertionError(f"audio cmfwisa: n_iters {res.n_iters}, cost {c}")
+    sep = lambda: tt.separate_waveforms(Z, res.W, res.H, hop_length=hop, length=len(x))  # noqa: E731
+    sep()
+    est, sep_ms = wall_ms(torch, sep)
+    y_mix = tt.istft(Z, hop_length=hop, length=len(x))
+    err_sum = float((est.sum(0) - y_mix).abs().max())
+    if not (est.shape == (2, len(x)) and err_sum <= AUDIO_ATOL[1]):
+        raise AssertionError(f"separate_waveforms: {tuple(est.shape)}, sum {err_sum:.3g} off")
+    sdr = [float(10 * torch.log10((s ** 2).sum() / ((s - e) ** 2).sum()))
+           for s, e in zip((torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()), est)]
+    gl = lambda: tt.griffinlim(mags[0], n_iter=gl_iters, hop_length=hop, length=len(x))  # noqa: E731
+    gl()
+    y_gl, gl_ms = wall_ms(torch, gl)
+    if not bool(torch.isfinite(y_gl).all()):
+        raise AssertionError("griffinlim: not finite")
+    summary["audio_ms"] = {"stft": stft_ms, "istft": istft_ms, "cmfwisa": cmf_ms,
+                           "separate_waveforms": sep_ms, "griffinlim": gl_ms}
+    say(f"phase 14 audio, {len(x)} samples, n_fft {n_fft} hop {hop} -> {tuple(Z.shape)}: stft "
+        f"{stft_ms:.2f} ms, istft {istft_ms:.2f} ms (max error {err:.3g}), cmfwisa 16+16 "
+        f"{cmf_iters} iterations {cmf_ms:.1f} ms, separate_waveforms {sep_ms:.2f} ms (the "
+        f"estimates sum to istft(Z) within {err_sum:.3g}; SDR {sdr[0]:.2f} and {sdr[1]:.2f} dB), "
+        f"griffinlim {gl_iters} iterations {gl_ms:.1f} ms")
+    del x, Z, y, mags, W_src, res, est, y_mix, y_gl
+
+    # g: the goldens on the card in f64
+    gold = pathlib.Path(__file__).resolve().parent / "tests" / "goldens"
+    worst = {}
+    for name, (run, fields) in sparse_golden_runs(tt, "cuda").items():
+        gd = np.load(gold / f"{name}.npz")
+        tol = SPARSE_GOLDEN_TOL[name]
+        r = run(gd)
+        if len(r.cost) != len(gd["cost"]) or not np.allclose(r.cost, gd["cost"], rtol=tol, atol=0):
+            raise AssertionError(f"golden {name}: cost trace off")
+        for f in fields:
+            x = getattr(r, f)
+            err = float(np.max(np.abs(x.cpu().numpy() - gd[f])))
+            if x.device.type != "cuda" or not err <= tol:
+                raise AssertionError(f"golden {name} {f}: {err:.3g} > {tol} on {x.device}")
+            worst[name] = max(worst.get(name, 0.0), err)
+    summary["goldens_f64_max_abs_err"] = worst
+    say(f"phase 14 goldens on the card in f64, factors' max abs error (tolerance "
+        f"{json.dumps(SPARSE_GOLDEN_TOL)}, costs at the same rtol): {json.dumps(worst)}")
+
+    # h: f32 on the card (NumPy inputs, no device=) against f64 on the CPU
+    ms_, ns_, ks_, Ts = SPARSE_SMALL
+    rng = np.random.default_rng(45)
+    H = rng.uniform(size=(ks_, ns_))
+    ini = {"V": rng.uniform(0.05, 1.0, (ms_, ns_)), "Vc": rng.uniform(0.05, 1.0, (129, ns_)),
+           "W": rng.uniform(size=(ms_, ks_)), "W3": rng.uniform(0.1, 1.0, (129, ks_, Ts)),
+           "H": H / np.sqrt((H ** 2).sum(1, keepdims=True)),
+           "Z": rng.uniform(0.1, 1.0, (129, ns_)) * np.exp(1j * rng.uniform(-np.pi, np.pi, (129, ns_)))}
+    f32 = {key: x.astype(np.complex64 if np.iscomplexobj(x) else np.float32)
+           for key, x in ini.items()}
+    card_calls = sparse_small_calls(tt, f32)
+    cpu_calls = sparse_small_calls(tt, ini, device="cpu")
+    gaps, steps = {}, {}
+    for name, call in card_calls.items():
+        r32, r64 = call(), cpu_calls[name]()
+        if r32.W.device.type != "cuda":
+            raise AssertionError(f"{name}: NumPy input did not run on the card")
+        c32, c64 = np.asarray(r32.cost, np.float64), np.asarray(r64.cost)
+        if name == "cmfwisa":
+            if len(c32) != len(c64):
+                raise AssertionError(f"cmfwisa: {len(c32)} and {len(c64)} costs")
+            gaps[name] = float(np.max(np.abs(c32 - c64) / np.abs(c64)))
+            tol = F32_RTOL
+        else:
+            gaps[name] = float(abs(c32[-1] - c64[-1]) / abs(c64[-1]))
+            tol = SPARSE_F32_RTOL
+            steps[name] = bool(r32.n_iters == r64.n_iters and np.allclose(
+                np.asarray(r32.resume_state["step_w"], np.float64),
+                np.asarray(r64.resume_state["step_w"]), rtol=1e-5) and np.isclose(
+                r32.resume_state["step_h"], r64.resume_state["step_h"], rtol=1e-5))
+            if not (np.all(np.isfinite(c32)) and np.all(np.diff(c32) <= SPARSE_MONO * np.abs(c32[:-1]))):
+                raise AssertionError(f"{name}: f32 trace not finite or not non-increasing")
+        if not gaps[name] <= tol:
+            raise AssertionError(f"{name}: f32 card {gaps[name]:.3g} from f64 CPU")
+    summary["f32_vs_f64"] = gaps
+    summary["f32_steps_agree"] = steps
+    say(f"phase 14 f32 on the card vs f64 on the CPU, {ms_}x{ns_} r{ks_} (cnmfsc and cmfwisa "
+        f"129x{ns_}, T{Ts}), {SMALL_ITERS} iterations: cmfwisa cost trace, nmfsc and cnmfsc "
+        f"final cost {json.dumps(gaps)}; the same iterations and step sizes (rtol 1e-5): "
+        f"{json.dumps(steps)}")
+    say(f"phase 14 {json.dumps(summary)}")
+
+
 def main():
     import torch
     phase0_device(torch)
@@ -1576,6 +1922,15 @@ def main():
     say(f"phase 13 kernel launches in phase 13: {json.dumps(launches)}")
     if any(launches.values()):
         raise AssertionError(f"phase 13 launched a kernel: {launches}")
+    # Phase 14 ports modules that reach no pallas_call: no kernel may launch.
+    fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
+    dk.kl_phi_dot_ht_dma_launches = 0
+    phase14_sparse_complex_audio(torch, V)
+    launches = {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
+    launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
+    say(f"phase 14 kernel launches in phase 14: {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched a kernel: {launches}")
     del V
 
     def per_iter(name):

@@ -9,19 +9,24 @@ built with ``nvcc`` at first use; on CPU tensors their plain PyTorch
 versions run instead.
 """
 from .core import EPS, Result
-from .models import (chcnmf, chnmf, cnmf, cnmf_encode, constrainednmf, convexnmf,
-                     lnmf, nmf, nmf2d, nmf2d_encode, nmf_batched, nmf_encode,
-                     nmf_encode_streaming, nmf_hals, nmf_multiseed, nmf_streaming,
-                     seminmf, symnmf)
+from .models import (chcnmf, chnmf, cmfwisa, cmfwisa_encode, cnmf, cnmf_encode,
+                     cnmfsc, constrainednmf, convexnmf, lnmf, nmf, nmf2d,
+                     nmf2d_encode, nmf_batched, nmf_encode, nmf_encode_streaming,
+                     nmf_hals, nmf_multiseed, nmf_streaming, nmfsc, seminmf, symnmf)
+from .ops.projection import projfunc
 from .ops.shift import reconstruct
 from .rank import consensus_stability, estimate_rank_svd, pick_rank
+from .utils import (griffinlim, istft, magnitude, separate, separate_waveforms,
+                    stft, wiener_masks)
 
 reconstruct_from_decomposition = reconstruct  # the reference's name
 
 __all__ = ["EPS", "Result", "reconstruct", "reconstruct_from_decomposition",
-           "nmf", "lnmf", "seminmf", "convexnmf", "chnmf", "cnmf", "chcnmf",
-           "constrainednmf", "nmf_hals", "nmf_streaming", "nmf_encode_streaming",
-           "nmf_batched", "nmf_multiseed", "nmf_encode", "cnmf_encode", "nmf2d",
-           "nmf2d_encode", "symnmf", "pick_rank", "consensus_stability",
+           "projfunc", "nmf", "lnmf", "seminmf", "convexnmf", "chnmf", "cnmf",
+           "nmfsc", "cnmfsc", "cmfwisa", "chcnmf", "constrainednmf", "nmf_hals",
+           "nmf_streaming", "nmf_encode_streaming", "nmf_batched", "nmf_multiseed",
+           "nmf_encode", "cnmf_encode", "cmfwisa_encode", "nmf2d", "nmf2d_encode",
+           "symnmf", "wiener_masks", "separate", "separate_waveforms", "stft",
+           "istft", "griffinlim", "magnitude", "pick_rank", "consensus_stability",
            "estimate_rank_svd"]
 __version__ = "1.1.0"  # the distribution's version (pyproject.toml)

@@ -21,6 +21,7 @@ parity is held with injected ``W_init``/``H_init``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Sequence
 
@@ -30,6 +31,44 @@ import torch
 # MATLAB double eps (reference uses `eps` as the division guard in every
 # multiplicative update, e.g. nmf.m:168,199).
 EPS = float(np.finfo(np.float64).eps)  # 2.220446049250313e-16
+
+# Stepsize underflow threshold for projected-gradient line searches
+# (reference: nmfsc.m:170,221; cnmfsc.m:190,245).
+STEP_UNDERFLOW = 1e-200
+
+# Device-to-host reads made through :func:`host_read`: the line searches,
+# the Hoyer projection and the stop rule of ops/loop.run.  A count for
+# measurement (chip_smoke.py phase 14 reads it per iteration).
+host_reads = 0
+
+
+def host_read(t: torch.Tensor):
+    """``t.tolist()``, counted in :data:`host_reads`: every value the
+    projected-gradient solvers and the stop rule bring to the host."""
+    global host_reads
+    host_reads += 1
+    return t.tolist()
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Full-f32 matmuls (no TF32 on CUDA, no bf16/TF32 in oneDNN on the
+    CPU) inside the block, whatever the caller set through
+    ``allow_tf32``, ``set_float32_matmul_precision`` or
+    ``fp32_precision``; the caller's settings come back on exit, normal
+    or not.  The projected-gradient solvers need it: their Gram-form
+    objectives cancel heavily, and TF32-class products stall the line
+    search (the JAX package solves under
+    ``default_matmul_precision("highest")`` for the same reason)."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [b.fp32_precision for b in backends]
+    try:
+        for b in backends:
+            b.fp32_precision = "ieee"
+        yield
+    finally:
+        for b, p in zip(backends, saved):
+            b.fp32_precision = p
 
 
 def common_scalars(cfg) -> tuple:
@@ -83,6 +122,30 @@ def resolve_dtype(V, dtype) -> torch.dtype:
     if np.issubdtype(d, np.floating) or np.issubdtype(d, np.complexfloating):
         return torch_dtype(d)
     return torch.float32
+
+
+def real_dtype_of(dtype: torch.dtype) -> torch.dtype:
+    """The real dtype of a complex one (complex64 -> float32); a real
+    dtype is its own."""
+    return dtype.to_real() if dtype.is_complex else dtype
+
+
+def complex_dtype_of(dtype: torch.dtype) -> torch.dtype:
+    """complex128 for float64 (or complex128), complex64 otherwise."""
+    return (torch.complex128 if dtype in (torch.float64, torch.complex128)
+            else torch.complex64)
+
+
+def ingest_rescaled(V, dtype, device):
+    """nmfsc-family V ingestion (nmfsc.m:57-62): cast once to the compute
+    dtype on the run's device, read ``(min, max)`` in one host read,
+    raise on a negative entry and divide by the max in the compute
+    dtype (the checks run after the cast, as in the JAX package)."""
+    Vd = as_tensor(V, dtype, device)
+    lo, hi = host_read(torch.stack([torch.min(Vd), torch.max(Vd)]))
+    if lo < 0:
+        raise ValueError("Negative values in data!")
+    return Vd / torch.tensor(hi, dtype=dtype, device=device)
 
 
 def resolve_device(V, device) -> torch.device:

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core import resolve_device, torch_dtype
+from .core import complex_dtype_of, resolve_device, torch_dtype
 
 
 def factors_from_numpy(obj, *, device=None, dtype=None, fields=("W", "H")):
@@ -26,7 +26,9 @@ def factors_from_numpy(obj, *, device=None, dtype=None, fields=("W", "H")):
     symnmf's (n, k) ``H_init=``, ``nmf_streaming``'s ``W_init=``, and the
     convolutive family's 3-D factors: cnmf's and nmf2d's W (m, k, T)
     (also the dictionary of ``cnmf_encode`` / ``nmf2d_encode``), nmf2d's
-    H (k, n, P) and chcnmf's G (p, k, T).
+    H (k, n, P) and chcnmf's G (p, k, T), and cmfwisa's complex P
+    (``fields=("W", "H", "P")``; a real ``dtype`` gives P its complex
+    partner: float64 -> complex128) as ``P_init=``.
     """
     get = obj.get if isinstance(obj, dict) else (lambda f: getattr(obj, f, None))
     found = [get(f) for f in fields]
@@ -40,24 +42,35 @@ def factors_from_numpy(obj, *, device=None, dtype=None, fields=("W", "H")):
         if isinstance(x, (list, tuple)):
             return [convert(a) for a in x]
         t = torch.tensor(np.asarray(x), device=device)  # a copy: JAX arrays are read-only
-        return t if dt is None else t.to(dt)
+        if dt is None:
+            return t
+        # a complex factor (cmfwisa's P) keeps its imaginary part
+        return t.to(complex_dtype_of(dt) if t.is_complex() else dt)
     return tuple(convert(x) for x in found)
 
 
 def resume_state_from_numpy(rs, *, device=None, dtype=None) -> dict:
     """The port's ``resume_state`` from a JAX ``Result.resume_state``.
 
-    JAX's extrapolated ``nmf_hals`` returns the momentum state as NumPy
-    arrays ``Wy``, ``Hy`` and floats ``beta``, ``beta_bar``,
-    ``prev_err``.  The arrays become tensors on ``device`` (default: the
-    card, as in :func:`factors_from_numpy`) in ``dtype`` (default: their
-    own dtype) and the scalars stay floats, ready to pass
-    as ``nmf_hals(..., extrapolate=True, resume_state=...)`` together
-    with the Result's W and H as ``W_init``/``H_init``.
+    Two kinds of state exist.  JAX's extrapolated ``nmf_hals`` returns
+    its momentum as NumPy arrays ``Wy``, ``Hy`` and floats ``beta``,
+    ``beta_bar``, ``prev_err``: the arrays become tensors on ``device``
+    (default: the card, as in :func:`factors_from_numpy`) in ``dtype``
+    (default: their own dtype) and the scalars stay floats, ready for
+    ``nmf_hals(..., extrapolate=True, resume_state=...)``.  ``nmfsc`` and
+    ``cnmfsc`` return their line-search stepsizes ``step_w`` and
+    ``step_h``: floats, except cnmfsc's per-frame (T,) ``step_w``, which
+    stays a NumPy array (the port keeps stepsizes on the host).  Pass
+    either with the Result's W and H as ``W_init``/``H_init``.
     """
+    if {"step_w", "step_h"} <= set(rs):
+        step_w = np.asarray(rs["step_w"])
+        return {"step_w": float(step_w) if step_w.ndim == 0 else step_w.copy(),
+                "step_h": float(rs["step_h"])}
     missing = {"Wy", "Hy", "beta", "beta_bar", "prev_err"} - set(rs)
     if missing:
-        raise ValueError(f"resume_state lacks {sorted(missing)}")
+        raise ValueError(f"resume_state lacks {sorted(missing)} (nor is it "
+                         "nmfsc's or cnmfsc's {'step_w', 'step_h'})")
     Wy, Hy = factors_from_numpy({"W": rs["Wy"], "H": rs["Hy"]},
                                 device=device, dtype=dtype)
     return {"Wy": Wy, "Hy": Hy,

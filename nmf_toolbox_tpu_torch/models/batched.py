@@ -1,16 +1,17 @@
 """Batched NMF: many small problems, or many restarts of one, in one solve.
 
 PyTorch counterpart of the ``nmf_batched``, ``nmf_multiseed``,
-``nmf_encode``, ``cnmf_encode`` and ``nmf2d_encode`` engines of
-``nmf_toolbox_tpu/models/batched.py``.  Serving
-factorizes many small matrices (per-utterance spectrograms, per-user
-blocks) rather than one large one; rank selection restarts one matrix
-many times.  The JAX engines ``vmap`` the single-problem step under
+``nmf_encode``, ``cnmf_encode``, ``nmf2d_encode`` and ``cmfwisa_encode``
+engines of ``nmf_toolbox_tpu/models/batched.py``.  Serving factorizes
+many small matrices (per-utterance spectrograms, per-user blocks) rather
+than one large one; rank selection restarts one matrix many times.  The JAX engines ``vmap`` the single-problem step under
 ``lax.scan``; here each step is written on batched tensors — W (B, m, k),
 H (B, k, n), and V (B, m, n) or one (m, n) shared by every restart — so
 each product of an iteration is one batched matmul for all problems.
 The convolutive encoders run H (B, k, n) or (B, k, n, P) through the
-shift operators of ``ops/shift.py``, whose GEMMs broadcast over the batch.
+shift operators of ``ops/shift.py``, whose GEMMs broadcast over the batch,
+and ``cmfwisa_encode`` a complex (B, m, n) batch through the fields of
+``models/cmfwisa.py``.
 
 The engines run a fixed iteration count with no stop rule (a converged
 problem keeps iterating harmlessly; MU is a fixed point) and return one
@@ -26,10 +27,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import (Result, as_list, as_tensor, common_scalars, merge_config,
-                    parse_cost_every, per_column, promote_per_source,
-                    reject_mesh, resolve_device, resolve_dtype, source_blocks,
-                    torch_dtype, uniform_init, unwrap_sources)
+from ..core import (Result, as_list, as_tensor, common_scalars, complex_dtype_of,
+                    merge_config, parse_cost_every, per_column, promote_per_source,
+                    real_dtype_of, reject_mesh, resolve_device, resolve_dtype,
+                    source_blocks, torch_dtype, uniform_init, unwrap_sources)
 from ..ops import divergence as dv
 from ..ops import loop as looplib
 from ..ops.gram import (conv_cross_grams_w, conv_euclidean_cost_gram,
@@ -37,6 +38,7 @@ from ..ops.gram import (conv_cross_grams_w, conv_euclidean_cost_gram,
 from ..ops.normalize import cross_frame_norm, unit_l2_columns
 from ..ops.shift import (conv_reconstruct, conv_reconstruct_2d, conv_wt_phi,
                          conv_wt_phi_2d)
+from .cmfwisa import complex_cost, per_source_wh, phase_fields, unit_phase
 
 MATRIX = (-2, -1)  # the dimensions a per-problem sum runs over
 
@@ -665,3 +667,136 @@ def nmf2d_encode(Vs, W, pitch_len: int, config: dict | None = None, **kwargs):
     spec = _EncSpec(maxiter, eps, div, alpha, beta, parse_cost_every(cfg), P)
     H, costs = _solve_nmf2d_encode(spec, Vs, W, H0, hsp)
     return _result(W, H, costs, maxiter)
+
+
+class _CmfEncSpec(NamedTuple):
+    iters: int
+    eps: float
+    blocks: tuple
+    p_fixed: tuple
+
+
+def _solve_cmf_encode(spec: _CmfEncSpec, Vs, W, H0, P0, hsp):
+    """H/P-only complex MU of every problem against ONE real dictionary W
+    (m, k), on device tensors, with no host sync.  Per problem it is
+    ``cmfwisa(V_i, ks, W_init=[W_s], W_fixed=True)``: with W frozen the H
+    denominator's (W_new' W) H is (W'W) H with a loop-invariant (k, k)
+    Gram; the V_bar / beta / G fields (cmfwisa.m:177-188) are nonlinear in
+    H and stay in the loop.  Returns (H, P, costs (B, iters))."""
+    blocks, eps = spec.blocks, spec.eps
+    WtW = W.T @ W
+
+    def step(state):
+        H, P, WH = state  # WH: the per-source reconstructions of H
+        P, G, _ = phase_fields(Vs, WH, P, spec.p_fixed)
+        M = WtW @ H  # cmfwisa.m:200 with W fixed
+        H = torch.cat([H[:, a:b] * ((W[:, a:b].T @ G[:, s])
+                                    / torch.clamp_min(M[:, a:b] + hsp[a:b, None], eps))
+                       for s, (a, b) in enumerate(blocks)], dim=1)
+        WH = per_source_wh(W, H, blocks)
+        return (H, P, WH), lambda: complex_cost(Vs, WH, P, H, hsp)
+
+    (H, P, _), costs = _scan(step, (H0, P0, per_source_wh(W, H0, blocks)),
+                             spec.iters, 1, W.dtype)
+    return H, P, costs
+
+
+def cmfwisa_encode(Vs, W, config: dict | None = None, **kwargs):
+    """Encode a complex batch Vs (B, m, n) against frozen magnitude
+    dictionaries — phase-aware serving (King 2012's CMF with the W update
+    disabled): per problem it fits the per-source encodings H and
+    unit-modulus phases P with V_i ~ sum_s (W_s H_s) .* P_s.
+
+    Per-problem trajectories are exactly ``cmfwisa(V_i, ks,
+    W_init=[W_s], W_fixed=True)``, including the entry unit-L2 column
+    normalization of W (cmfwisa.m:154) and the default phase init
+    exp(1j angle(V_i)) (cmfwisa.m:119).  Vs is a complex (B, m, n) array
+    or tensor, or a (V_re, V_im) pair of real (B, m, n) planes.
+
+    Parameters: W — one (m, k) array or a LIST of per-source
+    dictionaries; H_init (B, k, n) or a per-source list; P_init
+    (B, S, m, n) complex or a per-source list of (B, m, n); P_fixed and
+    H_sparsity (scalar or per source); maxiter (100); seed; dtype; eps;
+    device.  ``device_output`` changes nothing (P is a complex tensor on
+    the device either way); ``divergence``, ``data_dtype``, ``weights``
+    and the W options raise ``ValueError``, ``mesh`` raises
+    ``NotImplementedError``.  Returns Result with W (m, k, normalized),
+    H (B, k, n) and P (B, m, n) per source — per-source lists when W was
+    a list — as tensors on the run's device, and cost (B, maxiter), NumPy.
+    """
+    cfg = merge_config(config, kwargs)
+    for key, why in [
+            ("divergence", "cmfwisa is complex-euclidean only (cmfwisa.m:214-217)"),
+            ("data_dtype", "the complex fields read V at compute precision"),
+            ("weights", "the complex objective has no weighted form here")]:
+        if cfg.get(key) is not None:
+            raise ValueError(f"cmfwisa_encode: {key!r} does not apply — {why}")
+    _reject_encode_config(cfg, "cmfwisa_encode")
+    if isinstance(Vs, tuple) and len(Vs) == 2:  # (V_re, V_im) planes
+        device = resolve_device(Vs[0], cfg.get("device"))
+        rdt = real_dtype_of(resolve_dtype(Vs[0], cfg.get("dtype")))
+        V_re, V_im = (as_tensor(x, rdt, device) for x in Vs)
+        if V_re.ndim != 3 or V_re.shape != V_im.shape:
+            raise ValueError(f"cmfwisa_encode plane inputs must both be (B, m, n); "
+                             f"got {tuple(V_re.shape)} and {tuple(V_im.shape)}")
+        Vs = torch.complex(V_re, V_im)
+    else:
+        device = resolve_device(Vs, cfg.get("device"))
+        Vs = as_tensor(Vs, complex_dtype_of(resolve_dtype(Vs, cfg.get("dtype"))), device)
+        if Vs.ndim != 3:
+            raise ValueError(f"cmfwisa_encode expects Vs of shape (B, m, n) or a "
+                             f"(V_re, V_im) plane pair; got {tuple(Vs.shape)} (encode "
+                             "a single matrix with cmfwisa(V, ks, W_init=W, W_fixed=True))")
+    reject_mesh(cfg)
+    cdt = Vs.dtype
+    rdt = real_dtype_of(cdt)
+    B, m, n = Vs.shape
+    w_list, w_was_seq = as_list(W)
+    w_list = [as_tensor(w, rdt, device) for w in w_list]
+    S = len(w_list)
+    for s, w in enumerate(w_list):
+        if w.ndim != 2 or w.shape[0] != m:
+            raise ValueError(f"dictionary W[{s}] must be (m, k) = ({m}, k); "
+                             f"got {tuple(w.shape)}")
+    ks = [w.shape[1] for w in w_list]
+    blocks = source_blocks(ks)
+    W = unit_l2_columns(torch.cat(w_list, dim=1))  # cmfwisa.m:154
+    k = W.shape[1]
+    maxiter, _, eps, gen = common_scalars(cfg)
+
+    H0 = cfg.get("H_init")
+    if H0 is None:
+        H0 = uniform_init(gen, (B, k, n), rdt, device)
+    elif isinstance(H0, (list, tuple)):
+        if len(H0) != S:
+            raise ValueError(f"Requested {S} sources. Given {len(H0)} "
+                             "initial encoding matrices.")
+        H0 = torch.cat([as_tensor(h, rdt, device) for h in H0], dim=1)
+    H0 = as_tensor(H0, rdt, device)
+    if tuple(H0.shape) != (B, k, n):
+        raise ValueError(f"H_init must be {(B, k, n)}; got {tuple(H0.shape)}")
+    P0 = cfg.get("P_init")
+    if P0 is None:
+        P0 = unit_phase(Vs)[:, None].expand(B, S, m, n)  # cmfwisa.m:119 per problem
+    elif isinstance(P0, (list, tuple)):
+        if len(P0) != S:
+            raise ValueError(f"Requested {S} sources. Given {len(P0)} "
+                             "initial phase matrices.")
+        P0 = torch.stack([as_tensor(p, cdt, device) for p in P0], dim=1)
+    P0 = as_tensor(P0, cdt, device)
+    if tuple(P0.shape) != (B, S, m, n):
+        raise ValueError(f"P_init must be {(B, S, m, n)} (or a list of S (B, m, n) "
+                         f"per-source arrays); got {tuple(P0.shape)}")
+    p_fx = tuple(bool(x) for x in
+                 promote_per_source(cfg.get("P_fixed"), S, "P_fixed", False))
+    h_sp = [max(float(v), 0.0) for v in
+            promote_per_source(cfg.get("H_sparsity"), S, "H_sparsity", 0.0)]
+    hsp = per_column(h_sp, ks, rdt, device)
+
+    H, P, costs = _solve_cmf_encode(_CmfEncSpec(maxiter, eps, blocks, p_fx),
+                                    Vs, W, H0, P0, hsp)
+    return Result(fields=("W", "H", "P", "cost"),
+                  W=unwrap_sources(W, blocks, 1, w_was_seq),
+                  H=unwrap_sources(H, blocks, 1, w_was_seq),
+                  P=[P[:, s] for s in range(S)] if w_was_seq else P[:, 0],
+                  cost=costs.cpu().numpy(), n_iters=maxiter, converged=False)

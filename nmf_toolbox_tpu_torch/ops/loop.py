@@ -27,6 +27,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..core import host_read
+
 
 class LoopOut(NamedTuple):
     state: object
@@ -79,7 +81,7 @@ def run(step_fn: Callable, init_state, maxiter: int, tolerance,
     state, i, stopped, terminated = init_state, 0, False, False
     while not stopped and not terminated and i < maxiter:
         state, c, term = step_fn(state, i)
-        terminated = bool(term)
+        terminated = bool(host_read(term) if torch.is_tensor(term) else term)
         buf[i + offset] = c
         c, trigger = buf[i + offset], None
         if i >= 1 and not terminated and is_check(i, ce, maxiter):
@@ -90,12 +92,12 @@ def run(step_fn: Callable, init_state, maxiter: int, tolerance,
                 trigger = (c < prev) & (prev - c < tol)
         if callback is not None:
             # One read brings the cost and, on a check, the trigger.
-            read = (c[None] if trigger is None
-                    else torch.stack((c, trigger.to(cost_dtype)))).tolist()
+            read = host_read(c[None] if trigger is None
+                             else torch.stack((c, trigger.to(cost_dtype))))
             callback(i, read[0])
             stopped = trigger is not None and bool(read[1])
         elif trigger is not None:
-            stopped = bool(trigger)  # the one host sync of a check iteration
+            stopped = host_read(trigger)  # the one host sync of a check iteration
         i += 1
     return LoopOut(state, buf, i, stopped, terminated)
 
