@@ -68,7 +68,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     from nmf_toolbox_tpu_torch.ops.kernels import _build
     from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
-    out_dir = _build.BUILD_DIR / "dma_tiers"
+    out_dir = _build.build_dir() / "dma_tiers"
     shutil.rmtree(out_dir, ignore_errors=True)
     builds = {name: build_variant(_build, name, tiers, out_dir)
               for name, tiers in VARIANTS.items()}

@@ -157,6 +157,29 @@ without printing the last line:
    their step sizes agreed; every nmfsc / cnmfsc trace non-increasing
    within 1e-5 relative.  The kernel counters, set to 0 before phase 14,
    must read 0 after it.
+15. the checkpointed run, io, native, the CLI, the estimator and the
+   debug helpers (~45 s), on phase 3's V (rebuilt from its seed) and
+   phase 7's: ``run_checkpointed(nmf, method="fused")`` KL at 40 000x10 000
+   r100, 20 iterations in chunks of 5, bit-identical to one call (W, H,
+   costs), each fused kernel's counter set to 0 before it and 20 after, a
+   crash after 10 resumed from the file bit-identical too, ms/iter both
+   ways and the save per chunk; extrapolated ``nmf_hals`` at 100 000x10 000 r200
+   and ``nmfsc`` at BASELINE #2, chunked (HALS also crash-resumed)
+   bit-identical to one call; ``native.available()`` must be true;
+   phase 7's V as a 4 GB .npy through ``save_matrix``, read back
+   bit-equal by ``load_matrix`` (native) and ``np.load``, GB/s each;
+   ``convex_hull_anchors`` there with the native and the Python chain,
+   the same anchors, seconds against PR 8's 2.98; ``python -m
+   nmf_toolbox_tpu_torch nmf`` on that .npy at r200 with checkpoints
+   every 5 iterations in a subprocess, its factors within 1e-6 of one
+   ``nmf`` call in process (and whether the bits match), then
+   the same command in process, timed into load, solve and save;
+   ``estimators.NMF(method="fused")`` KL on X = V.T, its NumPy outputs
+   equal to ``nmf``'s W.T and H.T bit for bit, 20 launches of each fused
+   kernel; ``profile_to`` around 3 fused iterations under ``trace("nmf")``
+   writes a Chrome trace naming ``phase_kernel``, ``cost_kernel`` and
+   ``nmf``; ``check_finite`` passes the run and raises on a NaN copy;
+   ``iteration_logger`` through ``callback=`` prints 3 lines.
 
 Then a JSON line of per-kernel results and, last, the device line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
@@ -233,6 +256,9 @@ SPARSE_SMALL = (200, 300, 10, 4)  # m, n, k, T of phase 14's f32-vs-f64 runs (cn
 SPARSE_GOLDEN_TOL = {"nmfsc_sparse": 1e-9, "cnmfsc_sparse": 1e-9, "cmfwisa": 1e-9}  # test_goldens.py
 GOLDEN_ATOL = GOLDEN_RTOL = 1e-9  # tests/test_goldens.py, f64
 NEVER = 1e-30         # a tolerance no stop rule meets (0 falls back to 1e-3)
+CKPT_ITERS, CKPT_CHUNK = 20, 5  # phase 15's checkpointed runs, CLI and estimator
+CLI_RTOL = 1e-6       # the CLI's factors against one nmf call in process
+HULL_PR8_S = 2.98     # convex_hull_anchors at 100 000x10 000 in PR 8's phase 12
 SLEEP_CYCLES = 10 ** 9  # ~0.5 s of device clock ahead of each gated solve
 GATE_ITERS = 10       # iterations of a gated solve (its launches fit the queue)
 REL_TOL = 1e-4        # tests/test_pallas.py, f32 path
@@ -1873,6 +1899,304 @@ def phase14_sparse_complex_audio(torch, V_big):
     say(f"phase 14 {json.dumps(summary)}")
 
 
+def fused_counts(fk):
+    return {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
+
+
+def zero_fused_counts(fk):
+    fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
+
+
+def max_rel(a, b):
+    """max |a - b| / max |b|, in f64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def checkpoint_phase(torch, fk, V3, V_big, tmp):
+    """Chunked runs against one call: fused KL (with a crash resume),
+    extrapolated HALS and nmfsc, their launches and save times."""
+    from nmf_toolbox_tpu_torch import nmf, nmf_hals, nmfsc
+    from nmf_toolbox_tpu_torch.utils.checkpoint import run_checkpointed, save_factors
+    summary = {}
+    k = MAIN[2]
+    kw = dict(divergence="kl", method="fused", tolerance=NEVER)
+    total, chunk = CKPT_ITERS, CKPT_CHUNK
+    nmf(V3, k, maxiter=2, **kw)  # warm-up
+    one, one_ms = wall_ms(torch, lambda: nmf(V3, k, maxiter=total, **kw))
+    zero_fused_counts(fk)
+    res, ck_ms = wall_ms(torch, lambda: run_checkpointed(
+        nmf, V3, k, total_iters=total, chunk=chunk, path=tmp / "fused.npz", **kw))
+    counts = fused_counts(fk)
+    if set(counts.values()) != {total}:
+        raise AssertionError(f"the checkpointed fused run launched {counts}, not {total} each")
+    if not (res.n_iters == total and torch.equal(res.W, one.W) and torch.equal(res.H, one.H)
+            and np.array_equal(res.cost, one.cost)):
+        gap = max(max_rel(res.W, one.W), max_rel(res.H, one.H))
+        raise AssertionError(f"checkpointed fused KL: n_iters {res.n_iters}, factors "
+                             f"{gap:.3g} from one call, not bit-identical")
+    # A crash after half the iterations, then a fresh call on the file.
+    run_checkpointed(nmf, V3, k, total_iters=total // 2, chunk=chunk,
+                     path=tmp / "crash.npz", **kw)
+    zero_fused_counts(fk)
+    resumed = run_checkpointed(nmf, V3, k, total_iters=total, chunk=chunk,
+                               path=tmp / "crash.npz", **kw)
+    counts_resumed = fused_counts(fk)
+    if not (torch.equal(resumed.W, one.W) and torch.equal(resumed.H, one.H)
+            and np.array_equal(resumed.cost, one.cost)):
+        raise AssertionError("the crash-resumed fused run differs from one call")
+    if set(counts_resumed.values()) != {total - total // 2}:
+        raise AssertionError(f"the resumed fused run launched {counts_resumed}")
+    extra = {"iters_done": total, "cost_so_far": res.cost}
+    save_factors(tmp / "save.npz", res, extra=extra)  # warm-up
+    save_ms = [wall_ms(torch, lambda: save_factors(tmp / "save.npz", res, extra=extra))[1]
+               for _ in range(3)]
+    summary["fused_kl"] = {
+        "ms_per_iter_one_call": one_ms / total, "ms_per_iter_chunked": ck_ms / total,
+        "save_ms_per_chunk": float(np.median(save_ms)), "launches": counts}
+    say(f"phase 15 run_checkpointed fused KL {MAIN[0]}x{MAIN[1]} r{k}, {total} iterations "
+        f"in chunks of {chunk}: {ck_ms / total:.3f} ms/iter against {one_ms / total:.3f} in "
+        f"one call; a save {np.median(save_ms):.2f} ms per chunk (W, H, cost); launches "
+        f"{json.dumps(counts)}; W, H and costs bit-identical to one call; crash after "
+        f"{total // 2} and resume from the file: bit-identical too, launches "
+        f"{json.dumps(counts_resumed)}")
+
+    # Extrapolated HALS: the momentum rides in resume_state, as tensors
+    # between chunks and through the file after a crash.
+    kg = GRAM[2]
+    hk = dict(extrapolate=True, tolerance=NEVER, seed=3)
+    one, one_ms = wall_ms(torch, lambda: nmf_hals(V_big, kg, maxiter=total, **hk))
+    res, ck_ms = wall_ms(torch, lambda: run_checkpointed(
+        nmf_hals, V_big, kg, total_iters=total, chunk=chunk, path=tmp / "hals.npz", **hk))
+    run_checkpointed(nmf_hals, V_big, kg, total_iters=total // 2, chunk=chunk,
+                     path=tmp / "hals_crash.npz", **hk)
+    resumed = run_checkpointed(nmf_hals, V_big, kg, total_iters=total, chunk=chunk,
+                               path=tmp / "hals_crash.npz", **hk)
+    for name, r in (("chunked", res), ("crash-resumed", resumed)):
+        if not (torch.equal(r.W, one.W) and torch.equal(r.H, one.H)
+                and np.array_equal(r.cost, one.cost)):
+            raise AssertionError(f"{name} extrapolated nmf_hals differs from one call")
+    summary["hals_extrapolate"] = {"ms_per_iter_one_call": one_ms / total,
+                                   "ms_per_iter_chunked": ck_ms / total}
+    say(f"phase 15 run_checkpointed nmf_hals extrapolate {GRAM[0]}x{GRAM[1]} r{kg}: chunked "
+        f"and crash-resumed bit-identical to one call; {ck_ms / total:.3f} ms/iter against "
+        f"{one_ms / total:.3f} (each save writes W, H, Wy, Hy)")
+
+    m, n, ks = SPARSE_BASE
+    g = torch.Generator(device="cuda").manual_seed(15)
+    Vs = 0.1 + 0.9 * torch.rand((m, n), generator=g, device="cuda")
+    sk = dict(H_sparsity=0.6, tolerance=NEVER, seed=4)
+    one, one_ms = wall_ms(torch, lambda: nmfsc(Vs, ks, maxiter=total, **sk))
+    res, ck_ms = wall_ms(torch, lambda: run_checkpointed(
+        nmfsc, Vs, ks, total_iters=total, chunk=chunk, path=tmp / "nmfsc.npz", **sk))
+    if not (torch.equal(res.W, one.W) and torch.equal(res.H, one.H)
+            and np.array_equal(res.cost, one.cost)):
+        raise AssertionError("chunked nmfsc differs from one call")
+    summary["nmfsc"] = {"ms_per_iter_one_call": one_ms / total,
+                        "ms_per_iter_chunked": ck_ms / total}
+    say(f"phase 15 run_checkpointed nmfsc {m}x{n} r{ks} H_sparsity 0.6: chunked "
+        f"bit-identical to one call (step sizes through resume_state); "
+        f"{ck_ms / total:.3f} ms/iter against {one_ms / total:.3f}")
+    return summary
+
+
+def io_native_phase(torch, V_big, tmp):
+    """The native library, load_matrix against np.load on phase 7's V as
+    an .npy, and the native hull against the Python chain."""
+    from nmf_toolbox_tpu_torch import native
+    from nmf_toolbox_tpu_torch.utils import convex_hull_anchors, load_matrix, save_matrix
+    if not native.available():
+        raise AssertionError("the native library did not build")
+    path = tmp / "V.npy"
+    host = V_big.cpu().numpy()
+    gb = host.nbytes / 1e9
+    t0 = time.perf_counter()
+    save_matrix(str(path), V_big)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_matrix(str(path))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np_loaded = np.load(path)
+    np_s = time.perf_counter() - t0
+    if not (np.array_equal(loaded, host) and np.array_equal(np_loaded, host)):
+        raise AssertionError("load_matrix did not read back what save_matrix wrote")
+    del loaded, np_loaded, host
+    summary = {"gb": gb, "save_matrix_s": save_s, "load_matrix_gbps": gb / native_s,
+               "np_load_gbps": gb / np_s}
+    say(f"phase 15 io {V_big.shape[0]}x{V_big.shape[1]} f32 .npy ({gb:.2f} GB): save_matrix "
+        f"{save_s:.2f} s from the card, load_matrix (native, 8 threads) {gb / native_s:.2f} "
+        f"GB/s, np.load {gb / np_s:.2f} GB/s, both bit-equal (the file is in the page cache: "
+        "memory bandwidth, not the disk's)")
+
+    anchors, native_ms = wall_ms(torch, lambda: convex_hull_anchors(V_big, seed=0))
+    saved = native._lib, native._tried
+    native._lib, native._tried = None, True  # native.available() is now False
+    try:
+        python, python_ms = wall_ms(torch, lambda: convex_hull_anchors(V_big, seed=0))
+    finally:
+        native._lib, native._tried = saved
+    if not torch.equal(anchors, python):
+        raise AssertionError("the native and the Python hull chains chose other anchors")
+    summary["convex_hull_anchors_s"] = {"native": native_ms / 1e3, "python": python_ms / 1e3,
+                                        "pr8": HULL_PR8_S, "anchors": anchors.shape[1]}
+    say(f"phase 15 convex_hull_anchors {V_big.shape[0]}x{V_big.shape[1]}: native chain "
+        f"{native_ms / 1e3:.3f} s, Python chain {python_ms / 1e3:.3f} s (PR 8: "
+        f"{HULL_PR8_S} s), the same {anchors.shape[1]} anchors")
+    return summary, path
+
+
+def cli_phase(torch, V_big, npy, tmp):
+    """nmf through `python -m nmf_toolbox_tpu_torch` on phase 7's V with
+    checkpoints, against one nmf call in process; the same command in
+    process, timed by step."""
+    import os
+    from nmf_toolbox_tpu_torch import cli, nmf
+    from nmf_toolbox_tpu_torch.utils import checkpoint, io
+    k, total, chunk = GRAM[2], CKPT_ITERS, CKPT_CHUNK
+    argv = ["nmf", str(npy), "--k", str(k), "--maxiter", str(total), "--tolerance",
+            str(NEVER), "--checkpoint-every", str(chunk)]
+    root = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nmf_toolbox_tpu_torch", *argv, "--out",
+                           str(tmp / "cli.npz")], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    with np.load(tmp / "cli.npz") as z:
+        W, H = (torch.from_numpy(z[f]).cuda() for f in ("W", "H"))
+        if int(z["extra__iters_done"]) != total or out["iterations"] != total:
+            raise AssertionError(f"the CLI ran {out['iterations']} iterations")
+    one = nmf(V_big, k, maxiter=total, tolerance=NEVER, seed=0)
+    gap = max(max_rel(W, one.W), max_rel(H, one.H))
+    bits = torch.equal(W, one.W) and torch.equal(H, one.H)
+    if not gap <= CLI_RTOL:
+        raise AssertionError(f"the CLI's factors are {gap:.3g} from one nmf call")
+
+    # The same command in process, with the load, the saves and the solve
+    # timed apart.
+    spent = {"load": 0.0, "save": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[key] += time.perf_counter() - t0
+        return wrapper
+    load, save = io.load_matrix, checkpoint.save_factors
+    io.load_matrix, checkpoint.save_factors = timed(load, "load"), timed(save, "save")
+    try:
+        _, total_ms = wall_ms(torch, lambda: cli.main(argv + ["--out", str(tmp / "cli2.npz"),
+                                                              "--quiet"]))
+    finally:
+        io.load_matrix, checkpoint.save_factors = load, save
+    with np.load(tmp / "cli2.npz") as z:
+        same = np.array_equal(z["W"], W.cpu().numpy()) and np.array_equal(z["H"], H.cpu().numpy())
+    split = {"load_s": spent["load"], "save_s": spent["save"],
+             "solve_s": total_ms / 1e3 - spent["load"] - spent["save"]}
+    say(f"phase 15 CLI nmf {V_big.shape[0]}x{V_big.shape[1]} --k {k} --maxiter {total} "
+        f"--checkpoint-every {chunk} (euclidean gram): python -m {wall_s:.2f} s wall with "
+        f"its start; factors {gap:.3g} from one nmf call in process (bits equal: {bits}); "
+        f"in process "
+        f"{total_ms / 1e3:.2f} s: load {split['load_s']:.2f}, solve {split['solve_s']:.2f}, "
+        f"save {split['save_s']:.2f} ({total // chunk} saves); the same factors as the "
+        f"subprocess's: {same}")
+    return {"module_wall_s": wall_s, "max_rel_vs_one_call": gap, "bits_vs_one_call": bits,
+            **split}
+
+
+def estimator_debug_phase(torch, fk, V3, tmp):
+    """estimators.NMF with the fused kernels against nmf, and the debug
+    helpers around a fused KL run."""
+    import contextlib
+    import io as _io
+    from nmf_toolbox_tpu_torch import nmf
+    from nmf_toolbox_tpu_torch.estimators import NMF
+    from nmf_toolbox_tpu_torch.utils.debug import (check_finite, iteration_logger,
+                                                   profile_to, trace)
+    k = MAIN[2]
+    kw = dict(divergence="kl", method="fused", tolerance=NEVER)
+    ref = nmf(V3, k, maxiter=CKPT_ITERS, seed=0, **kw)
+    est = NMF(n_components=k, divergence="kl", method="fused", max_iter=CKPT_ITERS,
+              tol=NEVER, random_state=0)
+    zero_fused_counts(fk)
+    Ht, est_ms = wall_ms(torch, lambda: est.fit_transform(V3.T))
+    counts = fused_counts(fk)
+    if not (isinstance(Ht, np.ndarray) and isinstance(est.components_, np.ndarray)
+            and np.array_equal(est.components_, ref.W.cpu().numpy().T)
+            and np.array_equal(Ht, ref.H.cpu().numpy().T)
+            and np.array_equal(est.cost_trace_, ref.cost)):
+        raise AssertionError("the estimator's NumPy outputs differ from nmf's factors")
+    if set(counts.values()) != {CKPT_ITERS}:
+        raise AssertionError(f"the estimator launched {counts}")
+    say(f"phase 15 estimators.NMF(n_components={k}, kl, fused, max_iter={CKPT_ITERS}) "
+        f"fit_transform on X = V.T ({V3.shape[1]}x{V3.shape[0]}, NumPy): {est_ms:.1f} ms with "
+        f"the copy to the card; components_ and the encoding equal nmf's W.T and H.T bit "
+        f"for bit; launches {json.dumps(counts)}")
+
+    Vd = torch.from_numpy(V3).cuda()
+    logdir = tmp / "profile"
+    with profile_to(str(logdir)):
+        with trace("nmf"):
+            res = nmf(Vd, k, maxiter=3, **kw)
+        torch.cuda.synchronize()
+    traces = list(logdir.glob("trace_*.json"))
+    names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    found = {"phase_kernel": any("phase_kernel" in nm for nm in names),
+             "cost_kernel": any("cost_kernel" in nm for nm in names),
+             "nmf": "nmf" in names}
+    if len(traces) != 1 or not all(found.values()):
+        raise AssertionError(f"the profile trace lacks {found}")
+    check_finite(res)
+    bad = res.H.clone()
+    bad[0, 0] = float("nan")
+    res.H = bad
+    try:
+        check_finite(res)
+    except FloatingPointError:
+        pass
+    else:
+        raise AssertionError("check_finite passed a NaN")
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        nmf(Vd, k, maxiter=3, callback=iteration_logger(), **kw)
+    lines = buf.getvalue().splitlines()
+    if len(lines) != 3 or not all(ln.startswith(f"iter {i + 1}: cost = ")
+                                  for i, ln in enumerate(lines)):
+        raise AssertionError(f"iteration_logger printed {lines}")
+    say(f"phase 15 debug: profile_to wrote {traces[0].name} "
+        f"({traces[0].stat().st_size / 1e6:.1f} MB) naming {json.dumps(found)}; check_finite "
+        f"passed the run and raised on a NaN; iteration_logger printed {lines}")
+    return {"estimator_ms": est_ms, "launches": counts}
+
+
+def phase15_utilities_front_ends(torch, fk, V_big):
+    """The checkpointed run, io and native, the CLI, the estimator and the
+    debug helpers, on phase 3's V (40 000x10 000, rebuilt from its seed)
+    and phase 7's V (100 000x10 000)."""
+    import tempfile
+    t0 = time.perf_counter()
+    m, n, _ = MAIN
+    V3 = np.random.default_rng(0).uniform(0.1, 1, (m, n)).astype(np.float32)  # phase 3's V
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = pathlib.Path(tmpdir)
+        summary["checkpoint"] = checkpoint_phase(torch, fk, torch.from_numpy(V3).cuda(),
+                                                 V_big, tmp)
+        torch.cuda.empty_cache()
+        summary["io_native"], npy = io_native_phase(torch, V_big, tmp)
+        summary["cli"] = cli_phase(torch, V_big, npy, tmp)
+        summary["estimator_debug"] = estimator_debug_phase(torch, fk, V3, tmp)
+    summary["phase_s"] = time.perf_counter() - t0
+    say(f"phase 15 {json.dumps(summary)}")
+
+
 def main():
     import torch
     phase0_device(torch)
@@ -1931,6 +2255,7 @@ def main():
     say(f"phase 14 kernel launches in phase 14: {json.dumps(launches)}")
     if any(launches.values()):
         raise AssertionError(f"phase 14 launched a kernel: {launches}")
+    phase15_utilities_front_ends(torch, fk, V)
     del V
 
     def per_iter(name):

@@ -185,6 +185,16 @@ def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=device).to(dtype)
 
 
+def to_host(x) -> np.ndarray:
+    """A NumPy copy of a tensor on any device (a complex one stays
+    complex), or ``np.asarray`` of anything else: what every writer of
+    results to disk or to NumPy callers goes through, since ``np.asarray``
+    of a CUDA tensor raises."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def as_list(x) -> tuple[list, bool]:
     """Normalize scalar-or-sequence to a list; report whether it was a
     sequence (the cell-array promotion of nmf.m:114-116)."""

@@ -35,7 +35,7 @@ from ..core import (Result, as_list, as_tensor, common_scalars, default_h_init,
 from ..ops import divergence as dv
 from ..ops import loop as looplib
 from ..ops.gram import euclidean_cost_gram, sq_norm, vdot
-from ..ops.normalize import unit_l2_columns
+from ..ops.normalize import unit_l2_columns, unit_l2_columns_entry
 from ..utils.init import nndsvd, seedable
 
 
@@ -320,8 +320,9 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
     W0 = torch.cat([as_tensor(w, dtype, device) for w in w_list], dim=1)
     H0 = torch.cat([as_tensor(h, dtype, device) for h in h_list], dim=0)
     # Unit-L2 column normalization of the (possibly user-supplied) init
-    # (nmf.m:132-134).
-    W0 = unit_l2_columns(W0)
+    # (nmf.m:132-134); columns already normalized to rounding stay as
+    # they are, so a chunked run continues bit for bit.
+    W0 = unit_l2_columns_entry(W0)
 
     wsp = per_column(w_sp, ks, dtype, device)
     hsp = per_column(h_sp, ks, dtype, device)

@@ -5,11 +5,12 @@ source, all started together (the ``csrc/*.cuh`` headers they include
 are hashed with them), and the objects are linked into one shared
 library with a plain C interface, which is loaded with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds.  The library lands
-in ``nmf_toolbox_tpu_torch/_build/`` under a name that hashes the sources
-and the flags, so an edited source is never served a stale build.  A
-build writes to temporary files and renames the library into place, so
-processes that build at once do not see each other's half-written
-library.
+in :func:`build_dir` (``nmf_toolbox_tpu_torch/_build/``, or the user's
+``~/.cache/nmf_toolbox_tpu_torch/_build`` where an installed package
+cannot be written) under a name that hashes the sources and the flags,
+so an edited source is never served a stale build.  A build writes to
+temporary files and renames the library into place, so processes that
+build at once do not see each other's half-written library.
 
 ``nvcc`` is found through ``CUDA_HOME``, then ``PATH``, then the
 toolkit's default prefix ``/usr/local/cuda``; without it :func:`load`
@@ -27,7 +28,8 @@ from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+PKG_BUILD_DIR = PKG_DIR / "_build"
+CACHE_BUILD_DIR = Path.home() / ".cache" / "nmf_toolbox_tpu_torch" / "_build"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's default prefix
 # sm_90a (not sm_90): the Hopper-only instructions later kernels will use
 # exist only for the "a" target.  -Xptxas -v writes each kernel's
@@ -52,10 +54,25 @@ _SIGNATURES = {
     "nmf_kl_phi_dot_ht_dma": ((_P, _P, _P, _P, _I, _I, _I, _P), _I),
     # (k) -> the dma kernel's shared memory per block, in bytes
     "nmf_dma_smem_bytes": ((_I,), ctypes.c_longlong),
-    # (k, int[5] out: rows, warps, column groups, W split, blocks per SM)
+    # (k, int[4] out: rows, warps, column groups, blocks per SM)
     # -> the dma kernel's tier for k (-1 outside 1..512)
     "nmf_dma_tier": ((_I, _P), _I),
 }
+
+
+def build_dir() -> Path:
+    """Where builds go: the package's ``_build/`` when it can be written
+    (a checkout, an editable install), else the user's cache directory
+    (a read-only site-packages).  Created on first call."""
+    for d in (PKG_BUILD_DIR, CACHE_BUILD_DIR):
+        try:
+            d.mkdir(parents=True, exist_ok=True)
+        except OSError:
+            continue
+        if os.access(d, os.W_OK | os.X_OK):
+            return d
+    raise RuntimeError(f"neither {PKG_BUILD_DIR} nor {CACHE_BUILD_DIR} can be "
+                       "written; nmf_toolbox_tpu_torch cannot build its libraries")
 
 
 def nvcc_path() -> str:
@@ -87,7 +104,7 @@ def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources() + headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
-    return BUILD_DIR / f"libnmf_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libnmf_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -97,10 +114,9 @@ def build() -> Path:
     out = library_path()
     if out.is_file():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    objs = [out.parent / f"{tag}.{src.stem}.o" for src in sources()]
     tmp = out.with_name(f"{tag}.tmp")
     link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     procs, log = [], []

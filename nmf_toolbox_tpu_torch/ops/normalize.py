@@ -3,6 +3,8 @@
 are load-bearing."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -10,6 +12,19 @@ def unit_l2_columns(W):
     """W * diag(1/||w_k||_2) — nmf.m:133,169; cmfwisa.m:154,193.  A batch
     (B, m, k) normalizes each problem's columns."""
     return W / torch.sqrt(torch.sum(W * W, dim=-2, keepdim=True))
+
+
+def unit_l2_columns_entry(W):
+    """:func:`unit_l2_columns` for a solver's entry (nmf.m:132-134), which
+    leaves as they are the columns whose squared norm is already 1 to the
+    rounding of its sum, (log2 m + 4) ulps: a W that a solver returned,
+    as ``run_checkpointed`` hands it to its next chunk.  Dividing such a
+    column by a norm that rounds to 1 +- a few ulps would move it by those
+    ulps, and a chunked run would drift from one call; any other column
+    is divided exactly as :func:`unit_l2_columns` divides it."""
+    sq = torch.sum(W * W, dim=-2, keepdim=True)
+    tol = (math.log2(max(W.shape[-2], 1)) + 4) * torch.finfo(W.dtype).eps
+    return torch.where(torch.abs(sq - 1) <= tol, W, W / torch.sqrt(sq))
 
 
 def unit_sum_columns(X):

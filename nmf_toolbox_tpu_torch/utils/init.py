@@ -285,15 +285,22 @@ def _randomized_spectrum(V, num: int, seed: int, iters: int):
 def _convhull_2d(points: np.ndarray) -> np.ndarray:
     """Indices of the 2-D convex hull of ``points`` (n, 2), ascending.
 
-    Andrew's monotone chain in Python over f64 coordinates (MATLAB
-    convhull, chnmf.m:100); collinear boundary points are dropped.
-    Non-finite points are left out rather than compared."""
+    Andrew's monotone chain over f64 coordinates (MATLAB convhull,
+    chnmf.m:100); collinear boundary points are dropped.  The native C++
+    chain (``native.convhull2d``) runs when it built, the same chain in
+    Python otherwise.  Non-finite points are left out rather than
+    compared: a chain over NaN comparisons can write past the native
+    output buffer."""
     finite = np.isfinite(points).all(axis=1)
     if not finite.all():
         keep_idx = np.nonzero(finite)[0]
         if keep_idx.size == 0:
             return np.empty((0,), dtype=np.int64)
         return keep_idx[_convhull_2d(points[keep_idx])]
+    from .. import native
+    idx = native.convhull2d(points)
+    if idx is not None:
+        return idx
     order = np.lexsort((points[:, 1], points[:, 0])).tolist()
     pts = np.asarray(points, np.float64).tolist()
 

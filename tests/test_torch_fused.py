@@ -104,11 +104,16 @@ def test_import_builds_nothing_and_never_imports_jax():
         "import nmf_toolbox_tpu_torch.models.symnmf, nmf_toolbox_tpu_torch.models.constrainednmf\n"
         "from nmf_toolbox_tpu_torch import rank\n"
         "from nmf_toolbox_tpu_torch.utils import init\n"
+        "import nmf_toolbox_tpu_torch.cli, nmf_toolbox_tpu_torch.__main__\n"
+        "import nmf_toolbox_tpu_torch.estimators, nmf_toolbox_tpu_torch.native as native\n"
+        "from nmf_toolbox_tpu_torch.utils import checkpoint, io, viz, debug\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'nmf_toolbox_tpu'], "
         "'nmf_toolbox_tpu imported'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
         "assert _build.load.cache_info().currsize == 0, 'library loaded'\n"
+        "assert native._lib is None and not native._tried, 'native library loaded'\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib imported'\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
