@@ -180,6 +180,23 @@ without printing the last line:
    writes a Chrome trace naming ``phase_kernel``, ``cost_kernel`` and
    ``nmf``; ``check_finite`` passes the run and raises on a NaN copy;
    ``iteration_logger`` through ``callback=`` prints 3 lines.
+16. mesh= on the card (~60 s).  One NCCL rank (``init_distributed`` with
+   world size 1, ``make_mesh(1)``): ``nmf`` fused KL and IS at 40 000x10 000
+   r100, gram and ``nmf_hals`` at 100 000x10 000 r200 on phase 7's V, 10
+   iterations each, and ``nmf_batched`` euclidean and ``nmf_encode`` KL on
+   phase 9's batch, each bit-identical to the same call with no mesh, ms
+   per iteration (or call) of both and collectives per iteration; the
+   fused kernels' counters, set to 0 before, above 0 after.  Then two
+   ranks spawned by the script, sharing the card over Gloo (``make_mesh(2)``):
+   the same runs at 5 iterations and the engines on the batch split in
+   two, the ranks bit-identical to each other and within 1e-4 of one rank
+   (W, H and the cost; for HALS, whose factors on that uniform V are
+   ill-determined, the cost), with each rank's ms, collectives and device
+   memory peak, and each rank's fused-kernel counters, set to 0 before,
+   above 0 (kl_phi_dot_ht_dma's at 0, on one rank and on two); ``run_checkpointed(nmf, method="fused", backend="orbax")``
+   over the two ranks, 20 iterations in chunks of 5, straight through and
+   crash-resumed, bit-identical to one meshed call, with the ms per save.
+   A real multi-card NCCL mesh is not run: the machine has one card.
 
 Then a JSON line of per-kernel results and, last, the device line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
@@ -275,6 +292,9 @@ TOL_CHUNK, TOL_CAP = 20, 600  # bench.py:103,133
 ITERS = 10
 HALS_ITERS = 20
 ENGINE_ITERS = 100  # phases 9 and 10
+MESH_RANK_ITERS = 5   # phase 16's two-rank runs
+MESH_RTOL = 1e-4      # two ranks vs one, f32 (the engines' threshold)
+MESH_TIMEOUT = 150    # seconds: phase 16's process groups and its ranks' answers
 # The card's peaks for a kernel's bound (H100 SXM data sheet): f32-accurate
 # tensor-core work in 3xTF32 (three TF32 products per f32 product) and
 # device memory.
@@ -2197,6 +2217,255 @@ def phase15_utilities_front_ends(torch, fk, V_big):
     say(f"phase 15 {json.dumps(summary)}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: mesh= on the one card (one NCCL rank; two Gloo ranks sharing it)
+# ---------------------------------------------------------------------------
+
+def mesh_inputs(torch, V_gram=None):
+    """Phase 16's inputs, drawn on the card from seeds, so that every
+    process draws the same: the fused runs' V (MAIN) and inits, phase 7's
+    V (GRAM, redrawn unless given) and the gram inits."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    m, n, k = MAIN
+    Vf = 0.1 + 0.9 * torch.rand((m, n), generator=g, device="cuda")
+    Wf, Hf = (torch.rand(s, generator=g, device="cuda") for s in ((m, k), (k, n)))
+    m, n, k = GRAM
+    if V_gram is None:
+        g0 = torch.Generator(device="cuda").manual_seed(0)
+        V_gram = 0.05 + 0.95 * torch.rand((m, n), generator=g0, device="cuda")
+    Wg, Hg = (torch.rand(s, generator=g, device="cuda") for s in ((m, k), (k, n)))
+    return Vf, Wf, Hf, V_gram, Wg, Hg
+
+
+def mesh_runs(inputs, iters, mesh):
+    """The solves phase 16 runs with and without a mesh: name -> call.
+    HALS starts from its seeded default inits (unit-L2 W, as phase 7's
+    runs)."""
+    from nmf_toolbox_tpu_torch import nmf, nmf_hals
+    Vf, Wf, Hf, Vg, Wg, Hg = inputs
+    one = dict(maxiter=iters, tolerance=NEVER, mesh=mesh)
+    fused = dict(W_init=Wf, H_init=Hf, method="fused", **one)
+    return {
+        "nmf fused kl": lambda: nmf(Vf, MAIN[2], divergence="kl", **fused),
+        "nmf fused is": lambda: nmf(Vf, MAIN[2], divergence="is", **fused),
+        "nmf gram": lambda: nmf(Vg, GRAM[2], W_init=Wg, H_init=Hg, method="gram", **one),
+        "nmf_hals": lambda: nmf_hals(Vg, GRAM[2], seed=0, **one),
+    }
+
+
+def engine_inputs(torch):
+    """Phase 9's batch, its inits and problem 0's normalized bases."""
+    B, m, n, k = SERVING
+    rng, bases, Vs = serving_batch(torch)
+    W0, H0 = (torch.from_numpy(rng.uniform(size=s).astype(np.float32)).cuda()
+              for s in ((B, m, k), (B, k, n)))
+    Wd = torch.from_numpy(bases[0] / np.sqrt((bases[0] ** 2).sum(0))).cuda()
+    return Vs, W0, H0, Wd
+
+
+def mesh_engines(batch, mesh):
+    """``nmf_batched`` euclidean and ``nmf_encode`` KL on phase 9's batch,
+    ENGINE_ITERS iterations, with or without a mesh."""
+    from nmf_toolbox_tpu_torch import nmf_batched, nmf_encode
+    Vs, W0, H0, Wd = batch
+    k = SERVING[3]
+    return {
+        "nmf_batched euclidean": lambda: nmf_batched(Vs, k, W_init=W0, H_init=H0,
+                                                     maxiter=ENGINE_ITERS, mesh=mesh),
+        "nmf_encode kl": lambda: nmf_encode(Vs, Wd, H_init=H0, divergence="kl",
+                                            maxiter=ENGINE_ITERS, mesh=mesh),
+    }
+
+
+def same_result(torch, a, b):
+    return (torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+            and np.array_equal(a.cost, b.cost) and a.n_iters == b.n_iters)
+
+
+def mesh_rank(rank, tmp, queue):
+    """One of phase 16's two Gloo ranks sharing the card: the mesh runs of
+    MESH_RANK_ITERS iterations, the engines on the batch split in two and
+    the orbax-checkpointed fused run; the results go to ``tmp`` and the
+    numbers to ``queue``."""
+    import faulthandler
+    import os
+    import traceback
+    os.environ["LOCAL_RANK"] = str(rank)
+    faulthandler.dump_traceback_later(MESH_TIMEOUT - 30)  # where a hang waits
+    say(f"phase 16 rank {rank}: started")
+    try:
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from nmf_toolbox_tpu_torch import nmf
+        from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
+        from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
+        from nmf_toolbox_tpu_torch.parallel import collectives, init_distributed, make_mesh
+        from nmf_toolbox_tpu_torch.utils import run_checkpointed, save_factors_orbax
+        init_distributed(f"file://{tmp}/rendezvous2", 2, rank, backend="gloo",
+                         timeout=MESH_TIMEOUT)
+        say(f"phase 16 rank {rank}: joined")
+        mesh = make_mesh(2)
+        say(f"phase 16 rank {rank}: {mesh}")
+        out, saved = {"rank": rank}, {}
+        inputs = mesh_inputs(torch)
+        runs = dict(mesh_runs(inputs, MESH_RANK_ITERS, mesh),
+                    **mesh_engines(engine_inputs(torch), mesh))
+        zero_fused_counts(fk)
+        dk.kl_phi_dot_ht_dma_launches = 0
+        for name, run in runs.items():
+            say(f"phase 16 rank {rank}: {name}")
+            run()  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            calls = collectives.calls
+            res, ms = wall_ms(torch, run)
+            iters = res.n_iters if name.startswith("nmf ") or name == "nmf_hals" else 1
+            unit = "iter" if iters > 1 else "call"
+            out[name] = {f"ms_per_{unit}": ms / iters,
+                         f"collectives_per_{unit}": (collectives.calls - calls) / iters,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            saved[name] = {f: getattr(res, f).cpu() for f in ("W", "H")}
+            saved[name]["cost"] = np.asarray(res.cost)
+        out["launches"] = dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches})
+        # orbax checkpoints of the fused KL run, every rank writing its blocks
+        say(f"phase 16 rank {rank}: run_checkpointed")
+        Vf, Wf, Hf = inputs[:3]
+        kw = dict(W_init=Wf, H_init=Hf, method="fused", divergence="kl",
+                  tolerance=NEVER, mesh=mesh)
+        total, chunk, k = CKPT_ITERS, CKPT_CHUNK, MAIN[2]
+        one, one_ms = wall_ms(torch, lambda: nmf(Vf, k, maxiter=total, **kw))
+        res, ck_ms = wall_ms(torch, lambda: run_checkpointed(
+            nmf, Vf, k, total_iters=total, chunk=chunk, path=f"{tmp}/ck", backend="orbax", **kw))
+        run_checkpointed(nmf, Vf, k, total_iters=total // 2, chunk=chunk,
+                         path=f"{tmp}/crash", backend="orbax", **kw)
+        resumed = run_checkpointed(nmf, Vf, k, total_iters=total, chunk=chunk,
+                                   path=f"{tmp}/crash", backend="orbax", **kw)
+        save_ms = [wall_ms(torch, lambda: save_factors_orbax(
+            f"{tmp}/save", one, mesh=mesh, solver="nmf"))[1] for _ in range(3)]
+        out["checkpoint"] = {
+            "chunked_identical": bool(same_result(torch, res, one)),
+            "resumed_identical": bool(same_result(torch, resumed, one)),
+            "ms_per_iter_one_call": one_ms / total, "ms_per_iter_chunked": ck_ms / total,
+            "save_ms": float(np.median(save_ms[1:]))}
+        torch.save(saved, f"{tmp}/rank{rank}.pt")
+        torch.distributed.destroy_process_group()
+        queue.put((rank, out))
+    except Exception:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def check_mesh_launches(launches, who):
+    """Phase 16's runs launch each fused kernel and never the dma one."""
+    if min(launches[name] for name, _ in KERNELS) == 0 or launches[DMA[0]]:
+        raise AssertionError(f"phase 16 {who}: launches {launches}: every fused "
+                             f"kernel above 0 and {DMA[0]} at 0 expected")
+
+
+def phase16_mesh(torch, fk, V_gram):
+    """mesh= on the card: one NCCL rank bit-identical to no mesh, then two
+    Gloo ranks sharing the card, identical to each other and within
+    MESH_RTOL of one rank, with orbax checkpoints across them."""
+    import multiprocessing
+    import tempfile
+    import torch.distributed as dist
+    from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
+    from nmf_toolbox_tpu_torch.parallel import collectives, init_distributed, make_mesh
+    t0 = time.perf_counter()
+    summary = {"one_rank_nccl": {}, "two_ranks_gloo": {}}
+    inputs, batch = mesh_inputs(torch, V_gram), engine_inputs(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/rendezvous", 1, 0, backend="nccl",
+                         timeout=MESH_TIMEOUT)
+        mesh = make_mesh(1)
+        plain = dict(mesh_runs(inputs, ITERS, None), **mesh_engines(batch, None))
+        meshed = dict(mesh_runs(inputs, ITERS, mesh), **mesh_engines(batch, mesh))
+        zero_fused_counts(fk)
+        dk.kl_phi_dot_ht_dma_launches = 0
+        for name in plain:
+            plain[name]()  # warm-ups (the first collective starts NCCL)
+            meshed[name]()
+            a, ms_a = wall_ms(torch, plain[name])
+            calls = collectives.calls
+            b, ms_b = wall_ms(torch, meshed[name])
+            per = a.n_iters if name.startswith("nmf ") or name == "nmf_hals" else 1
+            if not same_result(torch, a, b):
+                raise AssertionError(f"phase 16 {name}: a one-rank NCCL mesh is not "
+                                     "bit-identical to no mesh")
+            unit = "iter" if per > 1 else "call"
+            summary["one_rank_nccl"][name] = {"ms_no_mesh": ms_a / per, "ms_mesh": ms_b / per,
+                                              f"collectives_per_{unit}":
+                                              (collectives.calls - calls) / per}
+            say(f"phase 16 one NCCL rank, {name}: bit-identical to no mesh; {ms_b / per:.3f} "
+                f"ms per {unit} against {ms_a / per:.3f} without; "
+                f"{(collectives.calls - calls) / per:g} collectives per {unit}")
+        launches = dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches})
+        say(f"phase 16 one NCCL rank, kernel launches: {json.dumps(launches)}")
+        check_mesh_launches(launches, "one NCCL rank")
+        dist.destroy_process_group()
+        del plain, meshed
+        torch.cuda.empty_cache()
+
+        # The single-rank references of the two-rank runs.
+        refs = {}
+        for name, run in dict(mesh_runs(inputs, MESH_RANK_ITERS, None),
+                              **mesh_engines(batch, None)).items():
+            res = run()
+            refs[name] = {"W": res.W, "H": res.H, "cost": np.asarray(res.cost)}
+        del inputs, batch
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=mesh_rank, args=(r, tmp, queue)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            got = dict(queue.get(timeout=MESH_TIMEOUT) for _ in procs)
+        finally:
+            for p in procs:
+                p.join(30)
+                if p.is_alive():
+                    p.kill()
+        for r in (0, 1):
+            if "error" in got[r]:
+                raise AssertionError(f"phase 16 rank {r} failed:\n{got[r]['error']}")
+        saved = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in (0, 1)]
+    for name, ref in refs.items():
+        a, b = saved
+        if not all(torch.equal(a[name][f], b[name][f]) for f in ("W", "H")) or \
+                not np.array_equal(a[name]["cost"], b[name]["cost"]):
+            raise AssertionError(f"phase 16 {name}: the two ranks differ")
+        gap = {f: max_rel(a[name][f], ref[f].cpu()) for f in ("W", "H")}
+        gap["cost"] = float(np.max(np.abs(a[name]["cost"] / ref["cost"] - 1)))
+        row = {"rank_identical": True, "vs_one_rank": gap,
+               "ranks": [got[r][name] for r in (0, 1)]}
+        summary["two_ranks_gloo"][name] = row
+        say(f"phase 16 two Gloo ranks, {name}: ranks bit-identical; from one rank "
+            f"W {gap['W']:.3g}, H {gap['H']:.3g}, cost {gap['cost']:.3g} relative; "
+            f"{json.dumps(row['ranks'])}")
+        # HALS on phase 7's uniform V: its factors are ill-determined (H
+        # grows to ~1e7 as components die and the sweeps divide by their
+        # near-zero diagonals), so a change of summation order moves them;
+        # its objective is held.
+        held = {"cost": gap["cost"]} if name == "nmf_hals" else gap
+        if max(held.values()) > MESH_RTOL:
+            raise AssertionError(f"phase 16 {name}: two ranks are {gap} from one rank, "
+                                 f"beyond {MESH_RTOL}")
+    for r in (0, 1):
+        check_mesh_launches(got[r]["launches"], f"rank {r}")
+        ck = got[r]["checkpoint"]
+        if not (ck["chunked_identical"] and ck["resumed_identical"]):
+            raise AssertionError(f"phase 16 rank {r}: the orbax-checkpointed run is not "
+                                 f"bit-identical to one meshed call: {ck}")
+    summary["two_ranks_gloo"]["launches"] = [got[r]["launches"] for r in (0, 1)]
+    summary["two_ranks_gloo"]["checkpoint"] = [got[r]["checkpoint"] for r in (0, 1)]
+    say(f"phase 16 two Gloo ranks, kernel launches per rank: "
+        f"{json.dumps(summary['two_ranks_gloo']['launches'])}")
+    say(f"phase 16 two Gloo ranks, run_checkpointed fused KL backend='orbax', "
+        f"{CKPT_ITERS} iterations in chunks of {CKPT_CHUNK}, straight and crash-resumed: "
+        f"bit-identical to one meshed call; {json.dumps(summary['two_ranks_gloo']['checkpoint'])}")
+    summary["phase_s"] = time.perf_counter() - t0
+    say(f"phase 16 {json.dumps(summary)}")
+
+
 def main():
     import torch
     phase0_device(torch)
@@ -2256,6 +2525,7 @@ def main():
     if any(launches.values()):
         raise AssertionError(f"phase 14 launched a kernel: {launches}")
     phase15_utilities_front_ends(torch, fk, V)
+    phase16_mesh(torch, fk, V)
     del V
 
     def per_iter(name):

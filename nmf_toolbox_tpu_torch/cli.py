@@ -11,9 +11,17 @@ The same flags as ``nmf-tpu``, plus ``--device`` (default: the CUDA card;
 ``cpu`` runs on the CPU).  Input: .npy (or raw binary with
 --shape/--dtype); output: an .npz checkpoint loadable with
 utils.checkpoint.load_factors of either package (and therefore resumable
-straight back into the solvers).  ``--mesh`` and
-``--checkpoint-backend orbax`` (and a directory for ``--resume``) are
-refused: sharded runs are not ported yet.
+straight back into the solvers).
+
+``--mesh N`` shards nmf, nmf_hals, encode and the --pick-rank sweep over
+N processes, one per device, started by torchrun:
+
+    torchrun --nproc-per-node 4 -m nmf_toolbox_tpu_torch nmf V.npy --k 32 --mesh 4 --out f.npz
+
+Every rank reads the input and runs the solve; rank 0 writes --out (and
+the npz checkpoints) and prints the summary, and with
+``--checkpoint-backend orbax`` every rank writes its blocks of a
+directory checkpoint, which ``--resume`` accepts.
 """
 from __future__ import annotations
 
@@ -81,18 +89,21 @@ def build_parser():
     p.add_argument("--shape", default=None, help="rows,cols for raw binary input")
     p.add_argument("--input-dtype", default="float32", help="raw binary dtype")
     p.add_argument("--resume", default=None,
-                   help="checkpoint .npz to resume factors from")
+                   help="checkpoint (.npz, or an orbax directory) to resume "
+                        "factors from")
     p.add_argument("--checkpoint-every", type=int, default=None,
                    help="run in chunks of this many iterations, saving "
                         "--out after each (crash-resumable)")
     p.add_argument("--checkpoint-backend", default="auto",
                    choices=("auto", "npz", "orbax"),
                    help="with --checkpoint-every: npz = one host file; "
-                        "auto = npz; orbax (directory checkpoints of "
-                        "sharded runs) is not ported yet, refused")
+                        "orbax = directory checkpoint with per-shard "
+                        "writes + sharded restore (mesh runs); auto = "
+                        "orbax for --mesh runs with a non-.npz --out")
     p.add_argument("--mesh", type=int, default=None,
-                   help="shard over this many devices (sample axis); not "
-                        "ported yet, refused")
+                   help="shard over this many devices (sample axis), one "
+                        "process each under torchrun (nmf, nmf_hals, "
+                        "encode, --pick-rank)")
     p.add_argument("--device", default="cuda",
                    help="where the solvers run: the CUDA card (default) or "
                         "'cpu'")
@@ -400,16 +411,16 @@ def _cmd_separate(args):
     return 0
 
 
+MESH_SOLVERS = ("nmf", "nmf_hals", "encode")
+
+
 def _refusal(args):
-    """The error for a request this port cannot serve yet (sharded runs,
-    directory checkpoints) or a device it cannot use; None otherwise."""
-    if args.mesh:
-        return f"--mesh {NOT_PORTED}"
-    if args.checkpoint_backend == "orbax":
-        return f"--checkpoint-backend orbax {NOT_PORTED}"
-    if args.resume and os.path.isdir(args.resume):
-        return (f"--resume {args.resume!r} is a directory (an orbax "
-                f"checkpoint), which {NOT_PORTED}")
+    """The error for a request this port cannot serve yet (sharded runs
+    of the solvers whose mesh= is not ported) or a device it cannot use;
+    None otherwise."""
+    if args.mesh and (args.solver not in MESH_SOLVERS or args.streaming):
+        what = "--streaming" if args.streaming else args.solver
+        return f"--mesh with {what} {NOT_PORTED}"
     import torch
     try:
         device = torch.device(args.device)
@@ -420,12 +431,42 @@ def _refusal(args):
     return None
 
 
+def _mesh(args):
+    """The mesh of ``--mesh N``: this process joins torchrun's process
+    group (Gloo for ``--device cpu``, NCCL on cards) unless it has joined
+    one, and the mesh spans its N ranks."""
+    import torch.distributed as dist
+    from .parallel import init_distributed, make_mesh
+    cpu = args.device == "cpu"
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise ValueError("--mesh runs one process per device: start the "
+                             "command with torchrun --nproc-per-node N")
+        init_distributed(backend="gloo" if cpu else "nccl")
+    return make_mesh(args.mesh, device_type="cpu" if cpu else "cuda")
+
+
+def _writer() -> bool:
+    """True on the process that writes --out and prints: rank 0 of a mesh
+    run, the only process otherwise."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refusal = _refusal(args)
     if refusal:
         print(f"error: {refusal}", file=sys.stderr)
         return 2
+    if args.mesh:
+        try:
+            mesh = _mesh(args)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    else:
+        mesh = None
     if args.solver == "separate":
         return _cmd_separate(args)
     if (args.dicts is not None or args.solos is not None
@@ -436,7 +477,14 @@ def main(argv=None):
     import nmf_toolbox_tpu_torch as nt
     from .core import to_host
     from .utils.io import load_matrix
-    from .utils.checkpoint import save_factors, load_factors, run_checkpointed
+    from .utils.checkpoint import load_factors, run_checkpointed
+    from .utils.checkpoint import save_factors as save_npz
+
+    def save_factors(path, res):
+        if _writer():
+            save_npz(path, res)
+    if not _writer():
+        args.quiet = True
 
     shape = tuple(int(x) for x in args.shape.split(",")) if args.shape else None
     if args.streaming:
@@ -522,6 +570,8 @@ def main(argv=None):
         if args.weights is not None:
             # (m, n) shared across the batch or (B, m, n) per problem
             cfg["weights"] = load_matrix(args.weights)
+        if mesh is not None:
+            cfg["mesh"] = mesh
         cfg.pop("tolerance", None)  # fixed-iteration batched engine
         if args.streaming:
             # Out-of-core: ONE wide (m, n) matrix streamed in column
@@ -690,6 +740,8 @@ def main(argv=None):
                   "(resume restores the factors)", file=sys.stderr)
             return 2
         cfg["init"] = args.init
+    if mesh is not None:
+        cfg["mesh"] = mesh
     if args.fix:
         # Only solvers with a real fixed-factor code path (the others
         # read config with .get and would silently ignore the flag).
@@ -705,7 +757,11 @@ def main(argv=None):
             return 2
         cfg[f"{args.fix}_fixed"] = True
     if args.resume:
-        cfg.update(load_factors(args.resume))
+        if os.path.isdir(args.resume):  # orbax directory checkpoint
+            from .utils.checkpoint_orbax import load_factors_orbax
+            cfg.update(load_factors_orbax(args.resume))
+        else:
+            cfg.update(load_factors(args.resume))
         if args.fix:
             # Encoding new data against a frozen factor: the checkpoint's
             # OTHER factor was fit to the training sample/feature count
@@ -744,10 +800,16 @@ def main(argv=None):
                 if sweep_div not in ("euclidean", "kl"):
                     sweep_div = "euclidean"
                 n_seeds = args.rank_seeds
+                if mesh is not None:
+                    # restarts shard over the mesh's sample axis — round
+                    # the restart count up to the next multiple
+                    from .parallel import mesh_multiples
+                    _, nmul = mesh_multiples(mesh)
+                    n_seeds = -(-n_seeds // nmul) * nmul
                 sel = nt.consensus_stability(
                     np.asarray(V), ranks, n_seeds=n_seeds,
                     seed=args.seed, dtype=args.dtype,
-                    divergence=sweep_div, device=args.device)
+                    divergence=sweep_div, device=args.device, mesh=mesh)
                 k = sel.recommended
                 rank_info = {"method": "consensus",
                              "sweep_divergence": sweep_div,

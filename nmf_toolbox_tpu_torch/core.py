@@ -148,11 +148,20 @@ def ingest_rescaled(V, dtype, device):
     return Vd / torch.tensor(hi, dtype=dtype, device=device)
 
 
-def resolve_device(V, device) -> torch.device:
+def resolve_device(V, device, mesh=None) -> torch.device:
     """The run's device: a tensor's own device, else ``device``, else the
     card.  A tensor on another device than the one named is an error,
     never a silent copy; an array with no ``device`` and no card raises,
-    never a silent run on the CPU."""
+    never a silent run on the CPU.  Under a ``mesh`` it is the mesh's
+    device for this rank, whatever V's (each rank copies its own block
+    there); a ``device`` of another type is an error."""
+    if mesh is not None:
+        d = None if device is None else torch.device(device)
+        if d is not None and (d.type != mesh.device.type
+                              or d.index not in (None, mesh.device.index)):
+            raise ValueError(f"device={device!r} but the mesh's device on this "
+                             f"rank is {mesh.device}; drop device=")
+        return mesh.device
     if torch.is_tensor(V):
         d = None if device is None else torch.device(device)
         if d is not None and (d.type != V.device.type
@@ -169,17 +178,42 @@ def resolve_device(V, device) -> torch.device:
     return torch.device("cuda")
 
 
+def staging_device(V, device, mesh) -> torch.device:
+    """Where a solver holds the whole arrays before placement: the run's
+    device with no mesh; under a mesh V's own device for a tensor and the
+    host for an array, so that only each rank's block moves to its device
+    (``parallel.apply_placements``)."""
+    if mesh is None:
+        return device
+    return V.device if torch.is_tensor(V) else torch.device("cpu")
+
+
 def reject_mesh(cfg) -> None:
-    """``mesh=`` (sharding over devices) is not ported: every entry point
-    that the JAX package gives a mesh raises rather than run unsharded."""
+    """``mesh=`` (sharding over devices) is not ported to this solver yet:
+    the entry points whose mesh path is still to come raise rather than
+    run unsharded (``nmf``, ``nmf_hals`` and the batched engines take a
+    ``parallel.make_mesh`` mesh)."""
     if cfg.get("mesh") is not None:
         raise NotImplementedError(
             "mesh= is not ported to nmf_toolbox_tpu_torch yet "
             "(ROADMAP queue 1 item 12, multi-GPU)")
 
 
+def is_dtensor(x) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor``."""
+    if not (torch.is_tensor(x) and torch.distributed.is_available()):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A tensor of ``dtype`` on ``device`` from a tensor or an array."""
+    """A tensor of ``dtype`` on ``device`` from a tensor or an array; a
+    sharded ``DTensor`` (a restore of ``utils.load_factors_orbax`` with
+    ``mesh=``) is gathered whole first."""
+    if is_dtensor(x):
+        from .parallel.collectives import dtensor_whole
+        x = dtensor_whole(x)
     if torch.is_tensor(x):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), device=device).to(dtype)
@@ -258,24 +292,6 @@ def fixed_col_mask(fixed: Sequence[bool], ks: Sequence[int]) -> np.ndarray:
     return np.concatenate(
         [np.full((int(k),), bool(f)) for f, k in zip(fixed, ks)]
     )
-
-
-def prepare_weights(weights, dtype, device, shape):
-    """Validate and cast a per-entry weight matrix like V: the one path
-    of every solver that takes ``weights=`` (the JAX package's
-    parallel/padding.prepare_weights without a mesh)."""
-    weights = as_tensor(weights, dtype, device)
-    if tuple(weights.shape) != tuple(shape):
-        raise ValueError(f"weights has shape {tuple(weights.shape)}, "
-                         f"expected {tuple(shape)}")
-    # Negative weights would flip update signs through the KL/AB
-    # ones-field denominators, and NaN weights poison every update.
-    if bool(torch.any(weights < 0) | torch.any(torch.isnan(weights))):
-        raise ValueError(
-            "weights must be nonnegative and NaN-free; to down-weight or "
-            "drop entries use 0, and to mask NaN DATA pass the NaN in V "
-            "with weight 0")
-    return weights
 
 
 # ---------------------------------------------------------------------------

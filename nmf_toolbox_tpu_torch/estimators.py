@@ -28,9 +28,11 @@ class NMF:
         goes in solver_args).
     divergence, max_iter, tol, random_state : usual meanings.
     solver_args : tuple of extra positional args (e.g. (context_len,)).
-    **config : forwarded to the solver (W_sparsity, dtype, method,
-        device, ...).  ``device`` ("cpu", "cuda", ...; default the card)
-        also places the auto-rank estimate.
+    **config : forwarded to the solver (W_sparsity, mesh, dtype, method,
+        device, ...).  ``device`` ("cpu", "cuda", ...; default the card,
+        or this rank's device of a ``mesh``) also places the auto-rank
+        estimate.  With ``mesh`` every rank fits the same X and holds the
+        same fitted estimator.
         ``weights`` is taken in the SAME orientation as X —
         (n_samples, n_features) — and transposed alongside it.
 
@@ -60,6 +62,10 @@ class NMF:
         name = {"mu": "nmf", "hals": "nmf_hals"}.get(self.solver, self.solver)
         return getattr(models, name)
 
+    def _device(self):
+        mesh = self.config.get("mesh")
+        return self.config.get("device") or getattr(mesh, "device", None)
+
     def _cfg(self):
         cfg = dict(self.config)
         cfg.pop("rank_energy", None)   # consumed by the auto-rank path,
@@ -81,7 +87,7 @@ class NMF:
             k, _ = estimate_rank_svd(
                 V, energy=float(self.config.get("rank_energy", 0.9)),
                 max_rank=int(self.config.get("rank_max", 64)),
-                seed=self.random_state, device=self.config.get("device"))
+                seed=self.random_state, device=self._device())
             self.n_components_ = int(k)
         else:
             self.n_components_ = int(self.n_components)

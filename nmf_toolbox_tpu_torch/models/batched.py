@@ -13,6 +13,14 @@ shift operators of ``ops/shift.py``, whose GEMMs broadcast over the batch,
 and ``cmfwisa_encode`` a complex (B, m, n) batch through the fields of
 ``models/cmfwisa.py``.
 
+Under a mesh (``parallel.make_mesh``) the problems shard over the
+mesh's sample axis and every dictionary is replicated
+(``parallel.placements_for``): each rank solves its own problems whole,
+with no collective inside the loop, and the results are gathered on every
+rank at the end.  ``nmf_multiseed``'s shared V shards over the feature
+axis of a 2-D mesh instead, zero-padded to its multiple, and its W-side
+column sums reduce over that axis.
+
 The engines run a fixed iteration count with no stop rule (a converged
 problem keeps iterating harmlessly; MU is a fixed point) and return one
 cost trace per problem.  So the loop never reads the device: the (B,)
@@ -29,10 +37,14 @@ import torch
 
 from ..core import (Result, as_list, as_tensor, common_scalars, complex_dtype_of,
                     merge_config, parse_cost_every, per_column, promote_per_source,
-                    real_dtype_of, reject_mesh, resolve_device, resolve_dtype,
-                    source_blocks, torch_dtype, uniform_init, unwrap_sources)
+                    real_dtype_of, resolve_device, resolve_dtype, source_blocks,
+                    staging_device, torch_dtype, uniform_init, unwrap_sources)
 from ..ops import divergence as dv
 from ..ops import loop as looplib
+from ..ops.masking import region_mask
+from ..parallel.collectives import gather_factor, sum_features
+from ..parallel.mesh import apply_placements, check_mesh, shard
+from ..parallel.padding import mesh_multiples, pad_amount, pad_axes
 from ..ops.gram import (conv_cross_grams_w, conv_euclidean_cost_gram,
                         conv_wt_vhat_gram, euclidean_cost_gram, sq_norm, vdot)
 from ..ops.normalize import cross_frame_norm, unit_l2_columns
@@ -80,44 +92,54 @@ def _wt_v(W, V):
     return vdot(W.mT.reshape(S * k, m), V, V.dtype).reshape(S, k, -1)
 
 
-def _euclid_step(V, v_sq, eps, inner):
+def _euclid_step(V, v_sq, eps, inner, mesh=None):
     """Gram-form euclid MU iteration on every problem at once (nmf.m:149-186
     update structure, W-normalization gradient coupling included).
     ``inner`` repeats each factor update reusing the V-dependent Grams
     (accelerated MU, as ``nmf(method='gram', inner_iters=)``).  The
-    objective comes from the Grams the update already formed."""
+    objective comes from the Grams the update already formed.  ``mesh``:
+    V and W hold this rank's rows (``nmf_multiseed`` on a 2-D mesh), and
+    the sums over m reduce over the feature axis."""
     def step(state):
         W, H = state
         HHt = H @ H.mT
         VHt = _v_ht(V, H)
         for _ in range(inner):
             WG = W @ HHt
-            dneg = torch.sum(W * WG, dim=-2, keepdim=True)
-            dpos = torch.sum(W * VHt, dim=-2, keepdim=True)
+            dneg, dpos = sum_features(mesh, torch.sum(W * WG, dim=-2, keepdim=True),
+                                      torch.sum(W * VHt, dim=-2, keepdim=True))
             W = W * ((VHt + W * dneg) / torch.clamp_min(WG + W * dpos, eps))
-            W = unit_l2_columns(W)
-        WtV = _wt_v(W, V)
-        WtW = W.mT @ W
+            W = unit_l2_columns(W, mesh)
+        WtV, WtW = sum_features(mesh, _wt_v(W, V), W.mT @ W)
         for _ in range(inner):
             H = H * (WtV / torch.clamp_min(WtW @ H, eps))
         return (W, H), lambda: euclidean_cost_gram(v_sq, WtV, WtW, H, dim=MATRIX)
     return step
 
 
-def _kl_step(V, eps):
+def _kl_step(V, eps, mesh=None, mask=None):
     """Field-form KL MU iteration on every problem, matching the single
-    solver's naive step (nmf.m:147-199 with the implicit ones field)."""
+    solver's naive step (nmf.m:147-199 with the implicit ones field).
+    ``mesh`` as in :func:`_euclid_step`; ``mask`` zeroes the 0/0 ratio
+    fields of V's zero-padded rows."""
+    def ratio(W, H):
+        R = V / (W @ H)
+        return R if mask is None else torch.where(mask, R, torch.zeros((), dtype=R.dtype,
+                                                                     device=R.device))
+
     def step(state):
         W, H = state
-        A = (V / (W @ H)) @ H.mT
+        A = ratio(W, H) @ H.mT
         h_sum = torch.sum(H, dim=-1)[..., None, :]  # ones(m, n) @ H'
-        dneg = torch.sum(W * h_sum, dim=-2, keepdim=True)
-        dpos = torch.sum(W * A, dim=-2, keepdim=True)
+        dneg, dpos = sum_features(mesh, torch.sum(W * h_sum, dim=-2, keepdim=True),
+                                  torch.sum(W * A, dim=-2, keepdim=True))
         W = W * ((A + W * dneg) / torch.clamp_min(h_sum + W * dpos, eps))
-        W = unit_l2_columns(W)
-        w_sum = torch.sum(W, dim=-2)[..., :, None]  # W' @ ones(m, n)
-        H = H * ((W.mT @ (V / (W @ H))) / torch.clamp_min(w_sum, eps))
-        return (W, H), lambda: dv.cost("kl", V, W @ H, dim=MATRIX)
+        W = unit_l2_columns(W, mesh)
+        WtR, w_sum = sum_features(mesh, W.mT @ ratio(W, H),
+                                  torch.sum(W, dim=-2)[..., :, None])  # W' @ ones(m, n)
+        H = H * (WtR / torch.clamp_min(w_sum, eps))
+        return (W, H), lambda: sum_features(
+            mesh, dv.cost("kl", V, W @ H, mask=mask, dim=MATRIX))
     return step
 
 
@@ -135,15 +157,17 @@ def _scan(step, state, iters, ce, cost_dtype):
     return state, torch.stack(cols, dim=1)
 
 
-def _solve(spec: _Spec, V, W0, H0):
+def _solve(spec: _Spec, V, W0, H0, mesh=None, mask=None):
     """The solve of ``nmf_batched`` (V (B, m, n)) and ``nmf_multiseed``
     (V (m, n), shared) on device tensors, with no host sync.  Returns
-    (W, H, costs (B, iters)) on the device."""
+    (W, H, costs (B, iters)) on the device.  ``mesh``: V and W hold this
+    rank's rows (a multiseed V sharded over features), ``mask`` the valid
+    rows of a padded V."""
     if spec.div == "euclidean":
-        v_sq = sq_norm(V.to(W0.dtype), dim=MATRIX)  # once per problem
-        step = _euclid_step(V, v_sq, spec.eps, spec.inner)
+        v_sq = sum_features(mesh, sq_norm(V.to(W0.dtype), dim=MATRIX))  # once per problem
+        step = _euclid_step(V, v_sq, spec.eps, spec.inner, mesh)
     else:
-        step = _kl_step(V, spec.eps)
+        step = _kl_step(V, spec.eps, mesh, mask)
     cdt = torch.promote_types(W0.dtype, torch.float32)
     with torch.no_grad():
         (W, H), costs = _scan(step, (W0, H0), spec.iters, spec.cost_every, cdt)
@@ -264,7 +288,7 @@ def _solve_nmf2d_encode(spec: _EncSpec, Vs, W, H0, hsp):
 
 
 # ---------------------------------------------------------------------------
-# Validators (the JAX package's, without its mesh placement)
+# Validators and placement (the JAX package's)
 # ---------------------------------------------------------------------------
 
 def _data_dtype_of(cfg, div, name):
@@ -279,15 +303,16 @@ def _data_dtype_of(cfg, div, name):
     return torch_dtype(dd)
 
 
-def _encode_weights_of(cfg, B, m, n, name, dtype, device):
+def _encode_weights_of(cfg, B, m, n, name, dtype, src, mesh, solver):
     """Validate the encode engine's optional per-entry weights: (m, n)
     shared across the batch or (B, m, n) per problem; nonnegative and
     NaN-free (weight 0 = missing entry).  Either shape broadcasts against
-    the batch."""
+    the batch.  They are checked on ``src`` and placed like V (batched)
+    or like the dictionary (shared) on a mesh."""
     Mw = cfg.get("weights")
     if Mw is None:
         return None
-    Mw = as_tensor(Mw, dtype, device)
+    Mw = as_tensor(Mw, dtype, src)
     if tuple(Mw.shape) not in ((m, n), (B, m, n)):
         raise ValueError(
             f"{name}: weights must be (m, n) = {(m, n)} shared across the "
@@ -295,8 +320,39 @@ def _encode_weights_of(cfg, B, m, n, name, dtype, device):
     if bool(torch.any(Mw < 0) | torch.any(torch.isnan(Mw))):
         raise ValueError(
             "weights must be nonnegative and NaN-free; to down-weight or "
-            "drop an entry use weight 0 (nmf's weights contract)")
-    return Mw
+            "drop an entry use weight 0 (padding.prepare_weights contract)")
+    if mesh is None:
+        return Mw
+    return (apply_placements(mesh, solver, V=Mw) if Mw.ndim == 3
+            else shard(mesh, Mw, ()))
+
+
+def _check_batch_mesh(B, mesh, name):
+    """Friendly divisibility error (mirrors nmf_multiseed's S check)."""
+    if mesh is None:
+        return
+    _, nmul = mesh_multiples(mesh)
+    if B % nmul:
+        raise ValueError(
+            f"{name}: batch size B={B} must be a multiple of the mesh's "
+            f"sample axis ({nmul}): problems shard over it. Pad the batch "
+            "or use a smaller mesh.")
+
+
+def _ingest(Vs, cfg, dtype_of=None):
+    """(mesh, device, src, dtype) of an engine call: the run's device,
+    and ``src`` where the whole arrays stay until placement (the run's
+    device with no mesh, see ``core.staging_device``)."""
+    mesh = check_mesh(cfg.get("mesh"))
+    device = resolve_device(Vs, cfg.get("device"), mesh)
+    dtype = resolve_dtype(Vs, cfg.get("dtype"))
+    return mesh, device, staging_device(Vs, device, mesh), dtype
+
+
+def _gather(mesh, *xs):
+    """Each per-problem result's whole batch, on every rank."""
+    out = tuple(gather_factor(mesh, x, "n", 0) for x in xs)
+    return out if len(out) > 1 else out[0]
 
 
 def _reject_encode_config(cfg, name):
@@ -343,8 +399,9 @@ def _euclid_or_kl(cfg, name):
 
 def _inits(cfg, gen, shape, dtype, device, axis):
     """W_init (B, m, k) and H_init (B, k, n), each given or uniform from
-    ``gen``, with W's columns at unit L2 (nmf.m:132-134); ``axis`` names
-    the leading axis in the shape error."""
+    ``gen``; ``axis`` names the leading axis in the shape error.  The
+    caller brings W's columns to unit L2 (nmf.m:132-134) once they are
+    placed."""
     B, m, n, k = shape
     W0, H0 = cfg.get("W_init"), cfg.get("H_init")
     W0 = uniform_init(gen, (B, m, k), dtype, device) if W0 is None else as_tensor(W0, dtype, device)
@@ -353,7 +410,7 @@ def _inits(cfg, gen, shape, dtype, device, axis):
         raise ValueError(
             f"inits must carry a leading {axis} axis: W_init {(B, m, k)}, "
             f"H_init {(B, k, n)}; got {tuple(W0.shape)}, {tuple(H0.shape)}")
-    return unit_l2_columns(W0), H0
+    return W0, H0
 
 
 def _result(W, H, costs, maxiter):
@@ -378,28 +435,30 @@ def nmf_batched(Vs, num_basis_elems: int, config: dict | None = None,
     skipped evaluations drop the objective's (m, n) reconstruction and
     log pass), device (where a NumPy Vs goes; default the CUDA card).
     ``device_output`` is accepted and changes nothing: the factors stay
-    on the run's device anyway.  ``mesh`` raises ``NotImplementedError``.
+    on the run's device anyway.  ``mesh``: problems shard over the mesh's
+    sample axis (B must be a multiple of it).
     Returns Result with W (B, m, k), H (B, k, n) tensors on the run's
     device and cost (B, maxiter), NumPy — one trace per problem.
     """
     cfg = merge_config(config, kwargs)
-    reject_mesh(cfg)
     div = _euclid_or_kl(cfg, "nmf_batched")
-    device = resolve_device(Vs, cfg.get("device"))
-    dtype = resolve_dtype(Vs, cfg.get("dtype"))
-    Vs = as_tensor(Vs, dtype, device)
+    mesh, device, src, dtype = _ingest(Vs, cfg)
+    Vs = as_tensor(Vs, dtype, src)
     if Vs.ndim != 3:
         raise ValueError(f"nmf_batched expects (B, m, n); got {tuple(Vs.shape)}")
     B, m, n = Vs.shape
+    _check_batch_mesh(B, mesh, "nmf_batched")
     k = int(num_basis_elems)
     maxiter, _, eps, gen = common_scalars(cfg)
-    W0, H0 = _inits(cfg, gen, (B, m, n, k), dtype, device, "batch")
+    W0, H0 = _inits(cfg, gen, (B, m, n, k), dtype, src, "batch")
     dd = _data_dtype_of(cfg, div, "nmf_batched")
     if dd is not None:
         Vs = Vs.to(dd)  # storage dtype; factors stay at compute dtype
     spec = _Spec(maxiter, eps, div, _inner_of(cfg, div, "nmf_batched"),
                  parse_cost_every(cfg))
-    return _result(*_solve(spec, Vs, W0, H0), maxiter)
+    Vs, W0, H0 = apply_placements(mesh, "nmf_batched", V=Vs, W=W0, H=H0)
+    W, H, costs = _solve(spec, Vs, unit_l2_columns(W0), H0)  # nmf.m:132-134
+    return _result(*_gather(mesh, W, H, costs), maxiter)
 
 
 def nmf_multiseed(V, num_basis_elems: int, n_seeds: int,
@@ -413,16 +472,17 @@ def nmf_multiseed(V, num_basis_elems: int, n_seeds: int,
     ('euclidean' | 'kl' — Brunet 2004's consensus method is classically
     KL), maxiter (100), inner_iters (accelerated MU, euclid only), seed,
     dtype, eps, data_dtype (euclid only), W_init/H_init with a leading
-    (S,) axis, device; ``device_output`` changes nothing and ``mesh``
-    raises ``NotImplementedError``.  Returns Result with W (S, m, k),
-    H (S, k, n) tensors on the run's device and cost (S, maxiter), NumPy.
+    (S,) axis, device; ``device_output`` changes nothing.  ``mesh``:
+    restarts shard over the mesh's sample axis (S must be a multiple of
+    it), V over its feature axis, zero-padded to that axis' multiple (zero
+    W rows are absorbing; KL masks the pad rows' 0/0 fields).  Returns
+    Result with W (S, m, k), H (S, k, n) tensors on the run's device and
+    cost (S, maxiter), NumPy.
     """
     cfg = merge_config(config, kwargs)
-    reject_mesh(cfg)
     div = _euclid_or_kl(cfg, "nmf_multiseed")
-    device = resolve_device(V, cfg.get("device"))
-    dtype = resolve_dtype(V, cfg.get("dtype"))
-    V = as_tensor(V, dtype, device)
+    mesh, device, src, dtype = _ingest(V, cfg)
+    V = as_tensor(V, dtype, src)
     if V.ndim != 2:
         raise ValueError(f"nmf_multiseed expects (m, n); got {tuple(V.shape)}")
     m, n = V.shape
@@ -431,12 +491,31 @@ def nmf_multiseed(V, num_basis_elems: int, n_seeds: int,
     if S < 1:
         raise ValueError(f"n_seeds must be >= 1; got {n_seeds}")
     maxiter, _, eps, gen = common_scalars(cfg)
-    W0, H0 = _inits(cfg, gen, (S, m, n, k), dtype, device, "seed")
+    W0, H0 = _inits(cfg, gen, (S, m, n, k), dtype, src, "seed")
+    pad_m = 0
+    if mesh is not None:
+        mmul, nmul = mesh_multiples(mesh)
+        if S % nmul:
+            raise ValueError(
+                f"n_seeds={S} must be a multiple of the mesh's sample "
+                f"axis ({nmul}): restarts shard over it. Round n_seeds "
+                f"up or use a smaller mesh.")
+        pad_m = pad_amount(m, mmul)
+        if pad_m:
+            V = pad_axes(V, {0: pad_m})
+            W0 = pad_axes(W0, {1: pad_m})
     dd = _data_dtype_of(cfg, div, "nmf_multiseed")
     if dd is not None:
         V = V.to(dd)  # storage dtype; factors stay at compute dtype
     spec = _Spec(maxiter, eps, div, _inner_of(cfg, div, "nmf_multiseed"))
-    return _result(*_solve(spec, V, W0, H0), maxiter)
+    V, W0, H0 = apply_placements(mesh, "nmf_multiseed", V=V, W=W0, H=H0)
+    mask = None
+    if pad_m:  # the valid rows of this rank's block of the padded V
+        mask = region_mask(V.shape, (m, n), V.device,
+                           (mesh.coord("m") * V.shape[0], 0))
+    W, H, costs = _solve(spec, V, unit_l2_columns(W0, mesh), H0, mesh, mask)
+    W = gather_factor(mesh, W, "m", 1)[:, :m]
+    return _result(*_gather(mesh, W, H, costs), maxiter)
 
 
 def nmf_encode(Vs, W, config: dict | None = None, **kwargs):
@@ -459,31 +538,31 @@ def nmf_encode(Vs, W, config: dict | None = None, **kwargs):
     data_dtype (bf16 V storage, euclid only, not with weights),
     cost_every (as in :func:`nmf_batched`; for the field divergences the
     skipped evaluations drop the objective's (m, n) reconstruction and
-    divergence pass), device; ``device_output`` changes nothing and
-    ``mesh`` raises ``NotImplementedError``.  W may be a LIST of
+    divergence pass), device; ``device_output`` changes nothing; ``mesh``:
+    problems shard over the mesh's sample axis (B a multiple of it), the
+    dictionary is replicated.  W may be a LIST of
     per-source dictionaries (cell-array semantics, nmf.m:114-116): they
     concatenate along the basis axis and W/H come back as per-source
     lists.  Returns Result with W (m, k, the normalized dictionary) and
     H (B, k, n) tensors on the run's device and cost (B, maxiter), NumPy.
     """
     cfg = merge_config(config, kwargs)
-    reject_mesh(cfg)
     div = dv.canon(cfg.get("divergence", "euclidean"))
     alpha = float(cfg.get("alpha", 1.0))
     beta = float(cfg.get("beta", 1.0))
     if div == "ab" and alpha == 0.0 and beta == 0.0:
         raise ValueError("alpha = 0 and beta = 0 is not supported at this time.")
     _reject_encode_config(cfg, "nmf_encode")
-    device = resolve_device(Vs, cfg.get("device"))
-    dtype = resolve_dtype(Vs, cfg.get("dtype"))
-    Vs = as_tensor(Vs, dtype, device)
+    mesh, device, src, dtype = _ingest(Vs, cfg)
+    Vs = as_tensor(Vs, dtype, src)
     if Vs.ndim != 3:
         raise ValueError(f"nmf_encode expects Vs of shape (B, m, n); got "
                          f"{tuple(Vs.shape)} (encode a single matrix with "
                          "nmf(V, k, W_init=W, W_fixed=True))")
     B, m, n = Vs.shape
+    _check_batch_mesh(B, mesh, "nmf_encode")
     w_list, w_was_seq = as_list(W)
-    w_list = [as_tensor(w, dtype, device) for w in w_list]
+    w_list = [as_tensor(w, dtype, src) for w in w_list]
     S = len(w_list)
     for s, w in enumerate(w_list):
         if w.ndim != 2 or w.shape[0] != m:
@@ -491,19 +570,19 @@ def nmf_encode(Vs, W, config: dict | None = None, **kwargs):
                              f"got {tuple(w.shape)}")
     ks = [w.shape[1] for w in w_list]
     blocks = source_blocks(ks)
-    W = unit_l2_columns(torch.cat(w_list, dim=1))  # nmf.m:132-134
+    W = torch.cat(w_list, dim=1)
     k = W.shape[1]
     maxiter, _, eps, gen = common_scalars(cfg)
 
     H0 = cfg.get("H_init")
     if H0 is None:
-        H0 = uniform_init(gen, (B, k, n), dtype, device)
+        H0 = uniform_init(gen, (B, k, n), dtype, src)
     elif isinstance(H0, (list, tuple)):
         if len(H0) != S:
             raise ValueError(f"Requested {S} sources. Given {len(H0)} "
                              "initial encoding matrices.")
-        H0 = torch.cat([as_tensor(h, dtype, device) for h in H0], dim=1)
-    H0 = as_tensor(H0, dtype, device)
+        H0 = torch.cat([as_tensor(h, dtype, src) for h in H0], dim=1)
+    H0 = as_tensor(H0, dtype, src)
     if tuple(H0.shape) != (B, k, n):
         raise ValueError(f"H_init must be {(B, k, n)}; got {tuple(H0.shape)}")
     h_sp = [max(float(v), 0.0) for v in
@@ -517,18 +596,21 @@ def nmf_encode(Vs, W, config: dict | None = None, **kwargs):
                              "weights= (the weighted fields read V at "
                              "compute precision, matching nmf()'s contract)")
         Vs = Vs.to(dd)  # storage dtype; factors stay at compute dtype
-    Mw = _encode_weights_of(cfg, B, m, n, "nmf_encode", dtype, device)
+    Mw = _encode_weights_of(cfg, B, m, n, "nmf_encode", dtype, src, mesh,
+                            "nmf_encode")
 
     spec = _EncSpec(maxiter, eps, div, alpha, beta, parse_cost_every(cfg))
-    H, costs = _solve_encode(spec, Vs, W, H0, hsp, Mw)
+    Vs, W, H0 = apply_placements(mesh, "nmf_encode", V=Vs, W=W, H=H0)
+    W = unit_l2_columns(W)  # nmf.m:132-134
+    H, costs = _gather(mesh, *_solve_encode(spec, Vs, W, H0, hsp, Mw))
     return _result(unwrap_sources(W, blocks, 1, w_was_seq),
                    unwrap_sources(H, blocks, 1, w_was_seq), costs, maxiter)
 
 
 def _encode_prelude(cfg, Vs, name, single):
     """The config checks the convolutive encoders share, then Vs as a
-    (B, m, n) tensor on the run's device: (div, alpha, beta, Vs)."""
-    reject_mesh(cfg)
+    (B, m, n) tensor on ``src``: (div, alpha, beta, Vs, mesh, device,
+    src)."""
     div = dv.canon(cfg.get("divergence", "euclidean"))
     alpha, beta = dv.ab_params(div, cfg.get("alpha", 1.0), cfg.get("beta", 1.0))
     if div == "ab" and alpha == 0.0 and beta == 0.0:
@@ -537,12 +619,13 @@ def _encode_prelude(cfg, Vs, name, single):
     if cfg.get("data_dtype") is not None:
         raise ValueError(f"{name}: data_dtype is not supported — the one-time V "
                          "gradient and the field paths read V at compute precision")
-    device = resolve_device(Vs, cfg.get("device"))
-    Vs = as_tensor(Vs, resolve_dtype(Vs, cfg.get("dtype")), device)
+    mesh, device, src, dtype = _ingest(Vs, cfg)
+    Vs = as_tensor(Vs, dtype, src)
     if Vs.ndim != 3:
         raise ValueError(f"{name} expects Vs of shape (B, m, n); got "
                          f"{tuple(Vs.shape)} (encode a single matrix with {single})")
-    return div, alpha, beta, Vs
+    _check_batch_mesh(Vs.shape[0], mesh, name)
+    return div, alpha, beta, Vs, mesh, device, src
 
 
 def cnmf_encode(Vs, W, config: dict | None = None, **kwargs):
@@ -563,20 +646,21 @@ def cnmf_encode(Vs, W, config: dict | None = None, **kwargs):
     per-source list, H_sparsity (scalar or per source), weights ((m, n)
     shared or (B, m, n) per problem, nonnegative; the positive field is
     then shifted, as in ``cnmf``), maxiter (100), seed, dtype, eps,
-    cost_every (objective every N iterations; H is bit-identical), device;
-    ``device_output`` changes nothing, ``data_dtype`` is rejected and
-    ``mesh`` raises ``NotImplementedError``.  W may be a LIST of
+    cost_every (objective every N iterations; H is bit-identical), device,
+    mesh (problems shard over its sample axis, as in :func:`nmf_encode`;
+    each problem is whole on one rank, so no halo); ``device_output``
+    changes nothing and ``data_dtype`` is rejected.  W may be a LIST of
     per-source dictionaries sharing one T; W/H then return as per-source
     lists.  Returns Result with W (m, k, T, normalized) and H (B, k, n)
     tensors on the run's device and cost (B, maxiter), NumPy.
     """
     cfg = merge_config(config, kwargs)
-    div, alpha, beta, Vs = _encode_prelude(
+    div, alpha, beta, Vs, mesh, device, src = _encode_prelude(
         cfg, Vs, "cnmf_encode", "cnmf(V, k, T, W_init=W, W_fixed=True)")
     B, m, n = Vs.shape
-    dtype, device = Vs.dtype, Vs.device
+    dtype = Vs.dtype
     w_list, w_was_seq = as_list(W)
-    w_list = [as_tensor(w, dtype, device) for w in w_list]
+    w_list = [as_tensor(w, dtype, src) for w in w_list]
     S = len(w_list)
     for s, w in enumerate(w_list):
         if w.ndim != 3 or w.shape[0] != m:
@@ -593,23 +677,25 @@ def cnmf_encode(Vs, W, config: dict | None = None, **kwargs):
 
     H0 = cfg.get("H_init")
     if H0 is None:
-        H0 = uniform_init(gen, (B, k, n), dtype, device)
+        H0 = uniform_init(gen, (B, k, n), dtype, src)
     elif isinstance(H0, (list, tuple)):
         if len(H0) != S:
             raise ValueError(f"Requested {S} sources. Given {len(H0)} "
                              "initial encoding matrices.")
-        H0 = torch.cat([as_tensor(h, dtype, device) for h in H0], dim=1)
-    H0 = as_tensor(H0, dtype, device)
+        H0 = torch.cat([as_tensor(h, dtype, src) for h in H0], dim=1)
+    H0 = as_tensor(H0, dtype, src)
     if tuple(H0.shape) != (B, k, n):
         raise ValueError(f"H_init must be {(B, k, n)}; got {tuple(H0.shape)}")
-    W, H0 = cross_frame_norm(W, H0, T)  # cnmf.m:157-166, W_fixed included
     h_sp = [max(float(v), 0.0) for v in
             promote_per_source(cfg.get("H_sparsity"), S, "H_sparsity", 0.0)]
     hsp = per_column(h_sp, ks, dtype, device)
-    Mw = _encode_weights_of(cfg, B, m, n, "cnmf_encode", dtype, device)
+    Mw = _encode_weights_of(cfg, B, m, n, "cnmf_encode", dtype, src, mesh,
+                            "cnmf_encode")
 
     spec = _EncSpec(maxiter, eps, div, alpha, beta, parse_cost_every(cfg))
-    H, costs = _solve_conv_encode(spec, Vs, W, H0, hsp, Mw)
+    Vs, W, H0 = apply_placements(mesh, "cnmf_encode", V=Vs, W=W, H=H0)
+    W, H0 = cross_frame_norm(W, H0, T)  # cnmf.m:157-166, W_fixed included
+    H, costs = _gather(mesh, *_solve_conv_encode(spec, Vs, W, H0, hsp, Mw))
     return _result(unwrap_sources(W, blocks, 1, w_was_seq),
                    unwrap_sources(H, blocks, 1, w_was_seq), costs, maxiter)
 
@@ -629,23 +715,23 @@ def nmf2d_encode(Vs, W, pitch_len: int, config: dict | None = None, **kwargs):
     Parameters: divergence ('euclidean' | 'kl' | 'is' | 'ab' with
     alpha/beta, the alpha = 0 dual included), H_init (B, k, n, P),
     H_sparsity (scalar), maxiter (100), seed, dtype, eps, cost_every,
-    device; ``device_output`` changes nothing, ``weights`` and
-    ``data_dtype`` are rejected and ``mesh`` raises
-    ``NotImplementedError``.  Returns Result with W (m, k, T, normalized)
+    device, mesh (problems shard over its sample axis, as in
+    :func:`nmf_encode`); ``device_output`` changes nothing, ``weights``
+    and ``data_dtype`` are rejected.  Returns Result with W (m, k, T, normalized)
     and H (B, k, n, P) tensors on the run's device and cost (B, maxiter),
     NumPy.
     """
     cfg = merge_config(config, kwargs)
-    div, alpha, beta, Vs = _encode_prelude(
+    div, alpha, beta, Vs, mesh, device, src = _encode_prelude(
         cfg, Vs, "nmf2d_encode", "nmf2d(V, k, T, P, W_init=W, W_fixed=True)")
     if cfg.get("weights") is not None:
         raise ValueError("nmf2d_encode: weights= is not supported")
     B, m, n = Vs.shape
-    dtype, device = Vs.dtype, Vs.device
+    dtype = Vs.dtype
     P = int(pitch_len)
     if P < 1 or P > m:
         raise ValueError(f"pitch_len must be in [1, {m}]; got {P}")
-    W = as_tensor(W, dtype, device)
+    W = as_tensor(W, dtype, src)
     if W.ndim != 3 or W.shape[0] != m:
         raise ValueError(f"dictionary W must be (m, k, T) with m = {m}; "
                          f"got {tuple(W.shape)}")
@@ -653,10 +739,11 @@ def nmf2d_encode(Vs, W, pitch_len: int, config: dict | None = None, **kwargs):
     maxiter, _, eps, gen = common_scalars(cfg)
 
     H0 = cfg.get("H_init")
-    H0 = (uniform_init(gen, (B, k, n, P), dtype, device) if H0 is None
-          else as_tensor(H0, dtype, device))
+    H0 = (uniform_init(gen, (B, k, n, P), dtype, src) if H0 is None
+          else as_tensor(H0, dtype, src))
     if tuple(H0.shape) != (B, k, n, P):
         raise ValueError(f"H_init must be {(B, k, n, P)}; got {tuple(H0.shape)}")
+    Vs, W, H0 = apply_placements(mesh, "nmf2d_encode", V=Vs, W=W, H=H0)
     # entry normalization with norm transfer into every problem's init
     # (models/nmf2d.py's convention, W_fixed included)
     W, norms = cross_frame_norm(W, None, T, return_norms=True)
@@ -665,7 +752,7 @@ def nmf2d_encode(Vs, W, pitch_len: int, config: dict | None = None, **kwargs):
                      dtype=dtype, device=device)
 
     spec = _EncSpec(maxiter, eps, div, alpha, beta, parse_cost_every(cfg), P)
-    H, costs = _solve_nmf2d_encode(spec, Vs, W, H0, hsp)
+    H, costs = _gather(mesh, *_solve_nmf2d_encode(spec, Vs, W, H0, hsp))
     return _result(W, H, costs, maxiter)
 
 
@@ -717,10 +804,10 @@ def cmfwisa_encode(Vs, W, config: dict | None = None, **kwargs):
     dictionaries; H_init (B, k, n) or a per-source list; P_init
     (B, S, m, n) complex or a per-source list of (B, m, n); P_fixed and
     H_sparsity (scalar or per source); maxiter (100); seed; dtype; eps;
-    device.  ``device_output`` changes nothing (P is a complex tensor on
+    device, mesh (problems shard over its sample axis, as in
+    :func:`nmf_encode`).  ``device_output`` changes nothing (P is a complex tensor on
     the device either way); ``divergence``, ``data_dtype``, ``weights``
-    and the W options raise ``ValueError``, ``mesh`` raises
-    ``NotImplementedError``.  Returns Result with W (m, k, normalized),
+    and the W options raise ``ValueError``.  Returns Result with W (m, k, normalized),
     H (B, k, n) and P (B, m, n) per source — per-source lists when W was
     a list — as tensors on the run's device, and cost (B, maxiter), NumPy.
     """
@@ -732,27 +819,27 @@ def cmfwisa_encode(Vs, W, config: dict | None = None, **kwargs):
         if cfg.get(key) is not None:
             raise ValueError(f"cmfwisa_encode: {key!r} does not apply — {why}")
     _reject_encode_config(cfg, "cmfwisa_encode")
-    if isinstance(Vs, tuple) and len(Vs) == 2:  # (V_re, V_im) planes
-        device = resolve_device(Vs[0], cfg.get("device"))
-        rdt = real_dtype_of(resolve_dtype(Vs[0], cfg.get("dtype")))
-        V_re, V_im = (as_tensor(x, rdt, device) for x in Vs)
+    planes = isinstance(Vs, tuple) and len(Vs) == 2  # (V_re, V_im)
+    mesh, device, src, dtype = _ingest(Vs[0] if planes else Vs, cfg)
+    if planes:
+        rdt = real_dtype_of(dtype)
+        V_re, V_im = (as_tensor(x, rdt, src) for x in Vs)
         if V_re.ndim != 3 or V_re.shape != V_im.shape:
             raise ValueError(f"cmfwisa_encode plane inputs must both be (B, m, n); "
                              f"got {tuple(V_re.shape)} and {tuple(V_im.shape)}")
         Vs = torch.complex(V_re, V_im)
     else:
-        device = resolve_device(Vs, cfg.get("device"))
-        Vs = as_tensor(Vs, complex_dtype_of(resolve_dtype(Vs, cfg.get("dtype"))), device)
+        Vs = as_tensor(Vs, complex_dtype_of(dtype), src)
         if Vs.ndim != 3:
             raise ValueError(f"cmfwisa_encode expects Vs of shape (B, m, n) or a "
                              f"(V_re, V_im) plane pair; got {tuple(Vs.shape)} (encode "
                              "a single matrix with cmfwisa(V, ks, W_init=W, W_fixed=True))")
-    reject_mesh(cfg)
     cdt = Vs.dtype
     rdt = real_dtype_of(cdt)
     B, m, n = Vs.shape
+    _check_batch_mesh(B, mesh, "cmfwisa_encode")
     w_list, w_was_seq = as_list(W)
-    w_list = [as_tensor(w, rdt, device) for w in w_list]
+    w_list = [as_tensor(w, rdt, src) for w in w_list]
     S = len(w_list)
     for s, w in enumerate(w_list):
         if w.ndim != 2 or w.shape[0] != m:
@@ -760,41 +847,46 @@ def cmfwisa_encode(Vs, W, config: dict | None = None, **kwargs):
                              f"got {tuple(w.shape)}")
     ks = [w.shape[1] for w in w_list]
     blocks = source_blocks(ks)
-    W = unit_l2_columns(torch.cat(w_list, dim=1))  # cmfwisa.m:154
+    W = torch.cat(w_list, dim=1)
     k = W.shape[1]
     maxiter, _, eps, gen = common_scalars(cfg)
 
     H0 = cfg.get("H_init")
     if H0 is None:
-        H0 = uniform_init(gen, (B, k, n), rdt, device)
+        H0 = uniform_init(gen, (B, k, n), rdt, src)
     elif isinstance(H0, (list, tuple)):
         if len(H0) != S:
             raise ValueError(f"Requested {S} sources. Given {len(H0)} "
                              "initial encoding matrices.")
-        H0 = torch.cat([as_tensor(h, rdt, device) for h in H0], dim=1)
-    H0 = as_tensor(H0, rdt, device)
+        H0 = torch.cat([as_tensor(h, rdt, src) for h in H0], dim=1)
+    H0 = as_tensor(H0, rdt, src)
     if tuple(H0.shape) != (B, k, n):
         raise ValueError(f"H_init must be {(B, k, n)}; got {tuple(H0.shape)}")
     P0 = cfg.get("P_init")
-    if P0 is None:
-        P0 = unit_phase(Vs)[:, None].expand(B, S, m, n)  # cmfwisa.m:119 per problem
-    elif isinstance(P0, (list, tuple)):
+    if isinstance(P0, (list, tuple)):
         if len(P0) != S:
             raise ValueError(f"Requested {S} sources. Given {len(P0)} "
                              "initial phase matrices.")
-        P0 = torch.stack([as_tensor(p, cdt, device) for p in P0], dim=1)
-    P0 = as_tensor(P0, cdt, device)
-    if tuple(P0.shape) != (B, S, m, n):
-        raise ValueError(f"P_init must be {(B, S, m, n)} (or a list of S (B, m, n) "
-                         f"per-source arrays); got {tuple(P0.shape)}")
+        P0 = torch.stack([as_tensor(p, cdt, src) for p in P0], dim=1)
+    if P0 is not None:
+        P0 = as_tensor(P0, cdt, src)
+        if tuple(P0.shape) != (B, S, m, n):
+            raise ValueError(f"P_init must be {(B, S, m, n)} (or a list of S (B, m, n) "
+                             f"per-source arrays); got {tuple(P0.shape)}")
     p_fx = tuple(bool(x) for x in
                  promote_per_source(cfg.get("P_fixed"), S, "P_fixed", False))
     h_sp = [max(float(v), 0.0) for v in
             promote_per_source(cfg.get("H_sparsity"), S, "H_sparsity", 0.0)]
     hsp = per_column(h_sp, ks, rdt, device)
 
-    H, P, costs = _solve_cmf_encode(_CmfEncSpec(maxiter, eps, blocks, p_fx),
-                                    Vs, W, H0, P0, hsp)
+    Vs, W, H0 = apply_placements(mesh, "cmfwisa_encode", V=Vs, W=W, H=H0)
+    W = unit_l2_columns(W)  # cmfwisa.m:154
+    if P0 is None:
+        P0 = unit_phase(Vs)[:, None].expand(Vs.shape[0], S, m, n)  # cmfwisa.m:119 per problem
+    else:
+        P0 = apply_placements(mesh, "cmfwisa_encode", P=P0)
+    H, P, costs = _gather(mesh, *_solve_cmf_encode(_CmfEncSpec(maxiter, eps, blocks, p_fx),
+                                                   Vs, W, H0, P0, hsp))
     return Result(fields=("W", "H", "P", "cost"),
                   W=unwrap_sources(W, blocks, 1, w_was_seq),
                   H=unwrap_sources(H, blocks, 1, w_was_seq),

@@ -19,7 +19,7 @@ import torch
 
 from ..core import (Result, as_list, as_tensor, common_scalars,
                     fixed_col_mask, merge_config, parse_cost_every, per_column,
-                    prepare_weights, promote_inits, promote_per_source,
+                    promote_inits, promote_per_source,
                     reject_mesh, resolve_device, resolve_dtype, source_blocks,
                     uniform_init, unwrap_sources)
 from ..ops import divergence as dv
@@ -28,6 +28,7 @@ from ..ops.gram import (conv_cross_grams_h, conv_cross_grams_w,
                         conv_euclidean_cost_gram, conv_wt_vhat_gram)
 from ..ops.normalize import cross_frame_norm
 from ..ops.shift import conv_phi_ht, conv_reconstruct, conv_wt_phi, stack_shifts_right
+from ..parallel.padding import prepare_weights
 
 
 def _keep_mask(fixed, ks, device):
@@ -205,7 +206,8 @@ def cnmf(V, num_basis_elems, context_len: int, config: dict | None = None,
 
     weights = cfg.get("weights")
     if weights is not None:
-        weights = prepare_weights(weights, dtype, device, (m, n))
+        weights = prepare_weights(weights, dtype, (m, n), None, "cnmf",
+                                  0, 0, None, device=device)
     method = cfg.get("method", "auto")
     euclid = div == "euclidean" and alpha == 1.0 and beta == 1.0
     if weights is not None:

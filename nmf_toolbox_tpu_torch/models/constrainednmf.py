@@ -19,11 +19,12 @@ import numpy as np
 import torch
 
 from ..core import (Result, as_tensor, common_scalars, merge_config,
-                    parse_cost_every, prepare_weights, reject_mesh,
+                    parse_cost_every, reject_mesh,
                     resolve_device, resolve_dtype, uniform_init)
 from ..ops import divergence as dv
 from ..ops import loop as looplib
 from ..ops.normalize import unit_l2_columns
+from ..parallel.padding import prepare_weights
 
 
 def _make_step(V, class_onehot, n_u, div, alpha, beta, wsp, zsp, eps,
@@ -153,7 +154,8 @@ def constrainednmf(V, labels, num_basis_elems: int,
     weights = cfg.get("weights")
     if weights is not None:
         # per-entry weights follow V through the unlabeled-first reorder
-        weights = prepare_weights(weights, dtype, device, (m, n))[:, perm]
+        weights = prepare_weights(weights, dtype, (m, n), None, "constrainednmf",
+                                  0, 0, None, device=device)[:, perm]
 
     ce = parse_cost_every(cfg)
     with torch.no_grad():

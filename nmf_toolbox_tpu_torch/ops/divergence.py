@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from ..parallel.collectives import sum_all
 DIVERGENCES = ("euclidean", "kl_divergence", "kl", "is_divergence", "is",
                "ab_divergence", "ab", "frobenius")
 
@@ -165,26 +166,29 @@ def _weighted_sum(term, weights, dim=None):
 
 
 def cost(divergence: str, V, V_hat, alpha: float = 1.0, beta: float = 1.0,
-         mask=None, weights=None, dim=None):
+         mask=None, weights=None, dim=None, mesh=None):
     """Per-iteration cost (nmf.m:206-215; identical in cnmf.m:239-248 and
     constrainednmf.m:241-250).  ``mask`` restricts the elementwise summand
     to the valid region; ``weights`` scales it per entry (see
     :func:`fields`); ``dim`` sums over those dimensions only (a batch of
-    problems gets one cost each), over everything by default."""
+    problems gets one cost each), over everything by default.  ``mesh``:
+    V is this rank's block, and the sum runs over every rank's."""
+    def total(term):
+        s = _weighted_sum(term, weights, dim)
+        return s if mesh is None else sum_all(mesh, s)
+
     d = canon(divergence)
     if d == "euclidean":
         r = V - V_hat
-        return 0.5 * _weighted_sum(r * r, weights, dim)
+        return 0.5 * total(r * r)
     if d == "kl":
-        term = V * torch.log(V / V_hat) - V + V_hat
-        return _weighted_sum(_masked(term, mask), weights, dim)
+        return total(_masked(V * torch.log(V / V_hat) - V + V_hat, mask))
     if d == "is":
-        term = torch.log(V_hat / V) + V / V_hat - 1.0
-        return _weighted_sum(_masked(term, mask), weights, dim)
+        return total(_masked(torch.log(V_hat / V) + V / V_hat - 1.0, mask))
     a, b = alpha, beta
     # MATLAB 1/0 == Inf: with alpha*beta == 0 the reference's AB cost is
     # +-Inf (nmf.m:214); the convergence rule then simply never fires.
     factor = -1.0 / (a * b) if a * b != 0.0 else -math.inf
     term = (V ** a * V_hat ** b
             - (a * V ** (a + b) + b * V_hat ** (a + b) + b) / (a + b))
-    return factor * _weighted_sum(_masked(term, mask), weights, dim)
+    return factor * total(_masked(term, mask))

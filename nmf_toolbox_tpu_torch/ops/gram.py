@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import sum_samples
 from .shift import shift_sum, stack_shifts_right
 
 
@@ -47,17 +48,21 @@ def sq_norm(V, dim=None):
     return torch.sum(V * V, dim=dim)
 
 
-def euclidean_cost_gram(v_sq, WtV, WtW, H, dim=None):
+def euclidean_cost_gram(v_sq, WtV, WtW, H, dim=None, mesh=None):
     """0.5*||V - W H||^2 = 0.5*(||V||^2 - 2<W'V, H> + <W'W H, H>).
 
     All operands are k-by-n / k-by-k; no m-by-n intermediate.  Clamped at
     zero: the identity cancels catastrophically once the true residual
     nears the dtype's precision floor, while the reference's residual form
     (nmf.m:208) is nonnegative by construction.  ``dim=(-2, -1)`` gives
-    one cost per problem of a batch.
+    one cost per problem of a batch.  ``mesh``: H and W'V hold this rank's
+    columns (W'V and W'W already summed over features, ``v_sq`` over every
+    rank), and the two inner products sum over samples in one collective.
     """
-    c = 0.5 * (v_sq - 2.0 * torch.sum(WtV * H, dim=dim)
-               + torch.sum((WtW @ H) * H, dim=dim))
+    a, b = torch.sum(WtV * H, dim=dim), torch.sum((WtW @ H) * H, dim=dim)
+    if mesh is not None:
+        a, b = sum_samples(mesh, a, b)
+    c = 0.5 * (v_sq - 2.0 * a + b)
     return torch.clamp_min(c, 0.0)
 
 

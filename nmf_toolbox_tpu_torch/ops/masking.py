@@ -9,19 +9,23 @@ from __future__ import annotations
 import torch
 
 
-def region_mask(shape, valid, device=None):
-    """(m, n) bool mask of the valid region; None when ``valid`` is None."""
+def region_mask(shape, valid, device=None, offset=(0, 0)):
+    """(m, n) bool mask of the valid region; None when ``valid`` is None.
+    A mesh rank's block passes its first row and column in the padded
+    array as ``offset``: validity is a property of the global index, and
+    a mask from local indices would mark the wrong entries."""
     if valid is None:
         return None
     m, n = shape[-2], shape[-1]
     mv, nv = valid
-    rows = torch.arange(m, device=device) < mv
-    cols = torch.arange(n, device=device) < nv
+    rows = torch.arange(offset[0], offset[0] + m, device=device) < mv
+    cols = torch.arange(offset[1], offset[1] + n, device=device) < nv
     return rows[:, None] & cols[None, :]
 
 
-def col_mask(n: int, n_valid, device=None):
-    """(n,) bool mask of the valid columns; None when ``n_valid`` is None."""
+def col_mask(n: int, n_valid, device=None, offset: int = 0):
+    """(n,) bool mask of the valid columns; None when ``n_valid`` is None.
+    ``offset``: the block's first column, as in :func:`region_mask`."""
     if n_valid is None:
         return None
-    return torch.arange(n, device=device) < n_valid
+    return torch.arange(offset, offset + n, device=device) < n_valid

@@ -7,23 +7,34 @@ import math
 
 import torch
 
+from ..parallel.collectives import sum_features
 
-def unit_l2_columns(W):
+
+def _col_sq(W, mesh):
+    """Squared column norms over all of m: a rank's rows of W on a mesh
+    with a feature axis sum with the other rows' (parallel/collectives)."""
+    return sum_features(mesh, torch.sum(W * W, dim=-2, keepdim=True))
+
+
+def unit_l2_columns(W, mesh=None):
     """W * diag(1/||w_k||_2) — nmf.m:133,169; cmfwisa.m:154,193.  A batch
-    (B, m, k) normalizes each problem's columns."""
-    return W / torch.sqrt(torch.sum(W * W, dim=-2, keepdim=True))
+    (B, m, k) normalizes each problem's columns.  ``mesh``: W holds this
+    rank's rows, and the norm runs over every rank's."""
+    return W / torch.sqrt(_col_sq(W, mesh))
 
 
-def unit_l2_columns_entry(W):
+def unit_l2_columns_entry(W, mesh=None):
     """:func:`unit_l2_columns` for a solver's entry (nmf.m:132-134), which
     leaves as they are the columns whose squared norm is already 1 to the
     rounding of its sum, (log2 m + 4) ulps: a W that a solver returned,
     as ``run_checkpointed`` hands it to its next chunk.  Dividing such a
     column by a norm that rounds to 1 +- a few ulps would move it by those
     ulps, and a chunked run would drift from one call; any other column
-    is divided exactly as :func:`unit_l2_columns` divides it."""
-    sq = torch.sum(W * W, dim=-2, keepdim=True)
-    tol = (math.log2(max(W.shape[-2], 1)) + 4) * torch.finfo(W.dtype).eps
+    is divided exactly as :func:`unit_l2_columns` divides it.  ``mesh`` as
+    in :func:`unit_l2_columns`; the tolerance counts the global m."""
+    sq = _col_sq(W, mesh)
+    m = W.shape[-2] * (1 if mesh is None else mesh.size("m"))
+    tol = (math.log2(max(m, 1)) + 4) * torch.finfo(W.dtype).eps
     return torch.where(torch.abs(sq - 1) <= tol, W, W / torch.sqrt(sq))
 
 

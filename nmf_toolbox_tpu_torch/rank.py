@@ -27,7 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .core import as_tensor, merge_config, resolve_device, resolve_dtype
+from .core import as_tensor, merge_config, resolve_device, resolve_dtype, staging_device
 from .models.batched import nmf_multiseed
 from .utils.init import _cholesky_qr, _randomized_svd, _working_eps
 
@@ -227,16 +227,19 @@ def consensus_stability(V, ranks, n_seeds: int = 20,
     Hutchins 2008 residual elbow).
 
     kwargs are forwarded to ``nmf_multiseed`` (maxiter, default 200 here,
-    seed, dtype, eps, device, ...).
+    seed, dtype, eps, device, mesh, ...).
     """
     cfg = merge_config(config, kwargs)
     cfg.setdefault("maxiter", 200)
     ranks = tuple(int(k) for k in ranks)
     if not ranks:
         raise ValueError("ranks must be a non-empty sequence")
-    # Move V to the run's device once; every candidate then reuses it.
+    # Move V to the run's device once (under a mesh, where each rank's
+    # blocks are cut from); every candidate then reuses it.
+    mesh = cfg.get("mesh")
+    device = resolve_device(V, cfg.get("device"), mesh)
     V = as_tensor(V, resolve_dtype(V, cfg.get("dtype")),
-                  resolve_device(V, cfg.get("device")))
+                  staging_device(V, device, mesh))
     stats: list[RankStats] = []
     for k in ranks:
         res = nmf_multiseed(V, k, n_seeds, dict(cfg))

@@ -25,10 +25,20 @@ import os
 
 import numpy as np
 
-from ..core import Result, reject_mesh, resolve_device, to_host
+from ..core import Result, is_dtensor, resolve_device, to_host
 from ..interop import factors_from_numpy, resume_state_from_numpy
+from ..parallel.collectives import dtensor_whole
+from ..parallel.mesh import check_mesh
 
 _FACTOR_KEYS = ("W", "H", "P", "G", "S", "Z")
+
+
+def _host(x):
+    """A checkpoint entry as NumPy: a restored DTensor whole, a per-source
+    list entry by entry."""
+    if isinstance(x, (list, tuple)):
+        return [_host(v) for v in x]
+    return to_host(dtensor_whole(x) if is_dtensor(x) else x)
 
 
 def save_factors(path, result_or_dict, extra: dict | None = None) -> None:
@@ -102,16 +112,41 @@ def run_checkpointed(solver, V, *args, total_iters: int, chunk: int,
     the total executed iterations under ``.n_iters``; returns the
     checkpointed state as-is if the run is already complete.
 
-    ``backend``: ``"npz"`` (one host file), or ``"auto"`` (default), which
-    picks npz.  ``"orbax"`` and ``mesh=`` raise ``NotImplementedError``:
-    sharded runs and their directory checkpoints are not ported yet.
+    ``backend``: ``"npz"`` (one host file; on a mesh rank 0 writes it),
+    ``"orbax"`` (a directory checkpoint, utils/checkpoint_orbax.py: every
+    rank of a mesh run writes its own blocks and a resume restores them
+    into the solver's placement), or ``"auto"`` (default): orbax when the
+    run is sharded (``mesh=``) and the path has no ``.npz`` suffix, npz
+    otherwise.  On a mesh every rank calls ``run_checkpointed`` with the
+    same arguments.
     """
+    mesh = check_mesh(config.get("mesh"))
+    if backend == "auto":
+        backend = ("orbax" if mesh is not None
+                   and not os.fspath(path).endswith(".npz") else "npz")
     if backend == "orbax":
-        raise NotImplementedError(
-            "backend='orbax' is not ported to nmf_toolbox_tpu_torch yet "
-            "(ROADMAP queue 1 item 12, multi-GPU)")
-    reject_mesh(config)
-    if backend not in ("auto", "npz"):
+        from .checkpoint_orbax import load_factors_orbax, save_factors_orbax
+        sname = getattr(solver, "__name__", None)
+
+        def _load(p, as_inits=False):
+            return load_factors_orbax(p, as_inits, mesh=mesh, solver=sname)
+
+        def _save(p, res, extra):
+            save_factors_orbax(p, res, extra, mesh=mesh, solver=sname)
+        exists = os.path.isdir(os.fspath(path))
+    elif backend == "npz":
+        _load = load_factors
+
+        def _save(p, res, extra):
+            import torch.distributed as dist
+            if mesh is None:
+                save_factors(p, res, extra=extra)
+                return
+            if dist.get_rank() == 0:  # every rank holds the same factors
+                save_factors(p, res, extra=extra)
+            dist.barrier()
+        exists = os.path.exists(os.fspath(path))
+    else:
         raise ValueError(f"unknown checkpoint backend {backend!r}")
 
     tolerance = float(config.get("tolerance", 1e-3))
@@ -119,8 +154,9 @@ def run_checkpointed(solver, V, *args, total_iters: int, chunk: int,
     inits: dict = {}
     costs = []
     resume_state = None
-    if resume and os.path.exists(os.fspath(path)):
-        raw = load_factors(path, as_inits=False)
+    device = resolve_device(V, config.get("device"), mesh)
+    if resume and exists:
+        raw = _load(path, as_inits=False)
         inits = {f"{k}_init": v for k, v in raw.items() if k in _FACTOR_KEYS}
         done = int(raw.get("extra__iters_done", 0))
         if "extra__cost_so_far" in raw:
@@ -129,8 +165,7 @@ def run_checkpointed(solver, V, *args, total_iters: int, chunk: int,
               if k.startswith("extra__resume_")}
         if rs:
             resume_state = resume_state_from_numpy(
-                rs, device=resolve_device(V, config.get("device")),
-                dtype=config.get("dtype"))
+                rs, device=device, dtype=config.get("dtype"))
     res = None
     converged = False
     while done < total_iters and not converged:
@@ -172,14 +207,14 @@ def run_checkpointed(solver, V, *args, total_iters: int, chunk: int,
         extra = {"iters_done": done, "cost_so_far": np.concatenate(costs)}
         if resume_state is not None:
             extra.update({f"resume_{k}": v for k, v in resume_state.items()})
-        save_factors(path, res, extra=extra)
+        _save(path, res, extra)
     if res is None:
         # Already complete at entry: rebuild a Result from the checkpoint,
         # its factors as tensors on the run's device, as a solver returns.
-        raw = load_factors(path, as_inits=False)
+        raw = _load(path, as_inits=False)
         names = tuple(k for k in _FACTOR_KEYS if k in raw)
-        tensors = factors_from_numpy(raw, fields=names,
-                                     device=resolve_device(V, config.get("device")))
+        tensors = factors_from_numpy({k: _host(raw[k]) for k in names},
+                                     fields=names, device=device)
         res = Result(fields=names + ("cost",), **dict(zip(names, tensors)))
         res.converged = True
     res.cost = np.concatenate(costs) if costs else to_host(res.cost)

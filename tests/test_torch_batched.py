@@ -310,8 +310,18 @@ ENGINES = {
 
 @pytest.mark.parametrize("name", sorted(ENGINES))
 def test_mesh_not_ported(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    """A foreign mesh= raises a TypeError naming make_mesh; a one-rank
+    mesh gives the unmeshed result bit for bit (the sharded cases are
+    tests/test_torch_parallel.py's)."""
+    with pytest.raises(TypeError, match="make_mesh"):
         ENGINES[name](mesh=object(), **CPU)
+    from torch_mesh import one_rank
+    from nmf_toolbox_tpu_torch.parallel import make_mesh
+    a = ENGINES[name](**CPU)
+    with one_rank():
+        b = ENGINES[name](mesh=make_mesh(1))
+    assert torch.equal(a.H, b.H)
+    np.testing.assert_array_equal(a.cost, b.cost)
 
 
 @pytest.mark.parametrize("name", sorted(ENGINES))

@@ -394,14 +394,30 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def test_orbax_and_mesh_raise(tmp_path):
+    """backend='orbax' writes a directory checkpoint and continues like
+    npz, with a one-rank mesh too; a foreign mesh= raises a TypeError
+    naming make_mesh; an unknown backend a ValueError (the sharded cases
+    are tests/test_torch_checkpoint_orbax.py's)."""
     V = np.random.default_rng(15).uniform(0.1, 1, (8, 10))
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        run_checkpointed(tt.nmf, V, 2, total_iters=4, chunk=2, path=tmp_path / "o",
-                         backend="orbax", **F64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    ref = run_checkpointed(tt.nmf, V, 2, total_iters=4, chunk=2,
+                           path=tmp_path / "n.npz", **F64)
+    res = run_checkpointed(tt.nmf, V, 2, total_iters=4, chunk=2, path=tmp_path / "o",
+                           backend="orbax", **F64)
+    assert (tmp_path / "o").is_dir()
+    assert torch.equal(res.W, ref.W) and torch.equal(res.H, ref.H)
+    from torch_mesh import one_rank
+    from nmf_toolbox_tpu_torch.parallel import make_mesh
+    kw = {k: v for k, v in F64.items() if k != "device"}
+    with one_rank():
+        res = run_checkpointed(tt.nmf, V, 2, total_iters=4, chunk=2,
+                               path=tmp_path / "m", mesh=make_mesh(1), **kw)
+    assert (tmp_path / "m").is_dir()  # auto: orbax for a mesh run
+    assert torch.equal(res.W, ref.W) and torch.equal(res.H, ref.H)
+    with pytest.raises(TypeError, match="make_mesh"):
         run_checkpointed(tt.nmf, V, 2, total_iters=4, chunk=2,
                          path=tmp_path / "m.npz", mesh=object(), **F64)
     with pytest.raises(ValueError, match="unknown checkpoint backend"):
         run_checkpointed(tt.nmf, V, 2, total_iters=4, chunk=2,
                          path=tmp_path / "x.npz", backend="zarr", **F64)
-    assert not list(tmp_path.iterdir())
+    # the refused calls wrote nothing
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["m", "n.npz", "o"]

@@ -3,8 +3,9 @@ nmf_toolbox_tpu_torch``, the ``nmf-tpu-torch`` script) against the JAX
 package's.  Mirrors tests/test_cli.py (38 tests) on the CPU with
 ``--device cpu``.  Most cases run in-process through ``cli.main(argv)``;
 two go through ``python -m nmf_toolbox_tpu_torch`` to cover
-``__main__``.  The three ``--mesh`` / orbax cases become checks of the
-clean refusal (exit 2, ``error: ...``, no traceback).  For ``nmf``,
+``__main__``.  The ``--mesh`` cases run in a one-rank process group in
+this process, and ``--pick-rank --mesh`` on two Gloo ranks
+(tests/torch_mesh.py); without torchrun ``--mesh`` is refused cleanly.  For ``nmf``,
 ``cnmf``, ``encode`` and ``--checkpoint-every`` the saved npz is compared
 with the JAX CLI's, both in f64: with the same inits (``--resume`` of one
 init file) within rtol 1e-9, and for ``encode``, whose H init each
@@ -167,12 +168,25 @@ def test_cli_checkpointed_rerun_and_totals(matrix_file, tmp_path, run_cli):
     assert summary(run_cli(args))["converged"] is True
 
 
-def test_cli_mesh(matrix_file, tmp_path):
-    """--mesh is refused cleanly (through python -m)."""
-    r = run_module(["nmf", matrix_file, "--k", "4", "--maxiter", "5", "--mesh", "8",
-                    "--out", str(tmp_path / "m.npz"), "--device", "cpu"])
-    refused(r, "--mesh", ITEM_12)
-    assert not (tmp_path / "m.npz").exists()
+def test_cli_mesh(matrix_file, tmp_path, run_cli):
+    """--mesh runs in a process group (a one-rank one here; torchrun's
+    are tests/test_torch_distributed.py's), bit-identical to no mesh.
+    Through python -m without torchrun it is refused cleanly; --mesh with
+    a solver whose mesh= is not ported, too."""
+    from torch_mesh import one_rank
+    args = ["nmf", matrix_file, "--k", "4", "--maxiter", "5"]
+    summary(run_cli(args + ["--out", str(tmp_path / "s.npz")]))
+    with one_rank():
+        s = summary(run_cli(args + ["--mesh", "1", "--out", str(tmp_path / "m.npz")]))
+    assert s["iterations"] == 5
+    a, b = load_factors(tmp_path / "s.npz"), load_factors(tmp_path / "m.npz")
+    np.testing.assert_array_equal(a["W_init"], b["W_init"])
+    r = run_module(args + ["--mesh", "8", "--out", str(tmp_path / "x.npz"),
+                           "--device", "cpu"])
+    refused(r, "torchrun")
+    refused(run_cli(["lnmf", matrix_file, "--k", "4", "--mesh", "2",
+                     "--out", str(tmp_path / "x.npz")]), "--mesh", ITEM_12)
+    assert not (tmp_path / "x.npz").exists()
 
 
 def test_cli_streaming(matrix_file, tmp_path, run_cli):
@@ -227,18 +241,16 @@ def test_cli_solver_valueerror_is_clean(matrix_file, tmp_path, run_cli):
 
 
 def test_cli_orbax_checkpoint_and_resume(matrix_file, tmp_path, run_cli):
-    """--checkpoint-backend orbax, and an orbax directory for --resume,
-    are refused cleanly and write nothing."""
+    # --checkpoint-backend orbax writes a directory checkpoint; --resume
+    # accepts that directory for a follow-on run.
     out = str(tmp_path / "ck_dir")
-    refused(run_cli(["nmf", matrix_file, "--k", "4", "--maxiter", "6",
-                     "--checkpoint-every", "3", "--checkpoint-backend", "orbax",
-                     "--out", out]), "orbax", ITEM_12)
-    assert not pathlib.Path(out).exists()
-    os.mkdir(out)
-    refused(run_cli(["nmf", matrix_file, "--k", "4", "--maxiter", "2",
-                     "--resume", out, "--out", str(tmp_path / "f.npz")]),
-            "directory", ITEM_12)
-    assert not (tmp_path / "f.npz").exists()
+    s = summary(run_cli(["nmf", matrix_file, "--k", "4", "--maxiter", "6",
+                         "--checkpoint-every", "3", "--checkpoint-backend", "orbax",
+                         "--out", out]))
+    assert s["iterations"] == 6 and pathlib.Path(out).is_dir()
+    summary(run_cli(["nmf", matrix_file, "--k", "4", "--maxiter", "2",
+                     "--resume", out, "--out", str(tmp_path / "f.npz")]))
+    assert (tmp_path / "f.npz").exists()
 
 
 def test_cli_pick_rank_consensus(tmp_path, run_cli):
@@ -321,15 +333,26 @@ def test_cli_fix_encodes_different_sample_count(tmp_path, run_cli):
         assert e["H"].shape == (3, 45)
 
 
-def test_cli_pick_rank_mesh_rounds_seeds(tmp_path, run_cli):
-    """--pick-rank with --mesh: the mesh is refused cleanly before any
-    sweep runs."""
+def test_cli_pick_rank_mesh_rounds_seeds(tmp_path):
+    """--pick-rank with --mesh rounds --rank-seeds up to the mesh's
+    sample-axis multiple instead of hard-failing (two Gloo ranks)."""
+    from torch_mesh import Ranks, run_cli as rank_cli
     rng = np.random.default_rng(5)
+    W = np.kron(np.eye(3), np.ones((8, 1)))
+    H = np.zeros((3, 32))
+    H[np.arange(32) % 3, np.arange(32)] = 1.0
     p = tmp_path / "V.npy"
-    np.save(p, rng.random((24, 32)).astype(np.float32))
-    refused(run_cli(["nmf", str(p), "--pick-rank", "2,3", "--rank-seeds", "5",
-                     "--mesh", "8", "--maxiter", "8", "--out", str(tmp_path / "f.npz")]),
-            "--mesh", ITEM_12)
+    np.save(p, (W @ H + 0.01 * rng.random((24, 32))).astype(np.float32))
+    ranks = Ranks(2)
+    try:
+        out = ranks.run(rank_cli, ["nmf", str(p), "--pick-rank", "2,3",
+                                   "--rank-seeds", "5", "--mesh", "2", "--maxiter", "8",
+                                   "--device", "cpu", "--out", str(tmp_path / "f.npz")])
+    finally:
+        ranks.close()
+    assert [rc for rc, _ in out] == [0, 0]
+    summary = json.loads(out[0][1].strip().splitlines()[-1])
+    assert summary["rank_selection"]["n_seeds"] == 6
 
 
 def test_cli_streaming_rejects_pick_rank(tmp_path, run_cli):

@@ -241,5 +241,12 @@ def test_cmfwisa_encode_shape_errors():
         tt.cmfwisa_encode((Vs.real, Vs.imag[:, :2]), Ws, **CPU)
     with pytest.raises(ValueError, match="dictionary"):
         tt.cmfwisa_encode(Vs, np.ones((M + 1, 2)), **CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.cmfwisa_encode(Vs, Ws, mesh=object(), **CPU)
+    from torch_mesh import one_rank
+    from nmf_toolbox_tpu_torch.parallel import make_mesh
+    a = tt.cmfwisa_encode(Vs, Ws, maxiter=3, **CPU)
+    with one_rank():
+        b = tt.cmfwisa_encode(Vs, Ws, maxiter=3, mesh=make_mesh(1))
+    for s in range(len(Ws)):
+        assert torch.equal(a.H[s], b.H[s]) and torch.equal(a.P[s], b.P[s])

@@ -1,0 +1,82 @@
+"""The port across real OS processes: the ``nmf`` half of
+tests/test_distributed_multiproc.py.  Two Gloo ranks (tests/torch_mesh.py)
+solve a problem whose n (and, on the (2, 1) mesh, m) the mesh does not
+divide; the ranks' trajectories must be bit-identical to each other and
+match the JAX package on ``make_mesh(2)`` and the port with no mesh, in
+f64 at 1e-10.  Then the command line under ``torchrun --standalone``
+(``init_distributed`` from torchrun's environment): ``nmf --mesh 2``
+writes one --out, the same factors as the single-process run.
+"""
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import nmf_toolbox_tpu as jt  # noqa: E402
+import nmf_toolbox_tpu_torch as tt  # noqa: E402
+from nmf_toolbox_tpu.parallel import make_mesh as jmake_mesh  # noqa: E402
+
+from torch_mesh import Ranks  # noqa: E402
+
+REPO = str(pathlib.Path(__file__).resolve().parents[1])
+CPU = {"device": "cpu"}
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    r = Ranks(2)
+    yield r
+    r.close()
+
+
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+@pytest.mark.parametrize("div,method", [("euclidean", "gram"), ("kl", "naive")])
+def test_two_process_mesh_parity(ranks, kind, div, method):
+    rng = np.random.default_rng(0)
+    V = rng.uniform(0.1, 1.0, (33, 67))
+    kw = dict(W_init=rng.uniform(size=(33, 4)), H_init=rng.uniform(size=(4, 67)),
+              divergence=div, method=method, maxiter=15, tolerance=1e-12,
+              dtype=np.float64)
+    got = ranks.solve("nmf_toolbox_tpu_torch.nmf", V, 4, mesh=kind, **kw)
+    jm = jmake_mesh(2) if kind == "1d" else jmake_mesh(shape=(2, 1))
+    for want in (jt.nmf(V, 4, mesh=jm, **kw), tt.nmf(V, 4, **kw, **CPU)):
+        w = {f: getattr(want, f) for f in ("W", "H")}
+        for f, x in w.items():
+            x = x.numpy() if torch.is_tensor(x) else np.asarray(x)
+            np.testing.assert_allclose(got[f], x, atol=1e-10, err_msg=f)
+        np.testing.assert_allclose(got["cost"], np.asarray(want.cost), rtol=1e-10)
+        assert got["n_iters"] == want.n_iters
+
+
+def test_cli_under_torchrun(tmp_path):
+    rng = np.random.default_rng(1)
+    V = rng.uniform(0.1, 1.0, (30, 41))
+    np.save(tmp_path / "V.npy", V)
+    from nmf_toolbox_tpu_torch.utils.checkpoint import save_factors
+    save_factors(tmp_path / "init.npz", {"W": rng.uniform(size=(30, 3)),
+                                         "H": rng.uniform(size=(3, 41))})
+    args = ["nmf", str(tmp_path / "V.npy"), "--k", "3", "--maxiter", "6",
+            "--dtype", "float64", "--tolerance", "1e-12", "--device", "cpu",
+            "--resume", str(tmp_path / "init.npz")]
+    env = {"PYTHONPATH": REPO, "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "HOME": str(tmp_path), "OMP_NUM_THREADS": "1"}
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "2", "-m", "nmf_toolbox_tpu_torch"]
+                       + args + ["--mesh", "2", "--out", str(tmp_path / "m.npz")],
+                       capture_output=True, text=True, cwd=REPO, env=env, timeout=240)
+    assert r.returncode == 0, r.stderr[-1500:]
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1  # rank 0 alone prints
+    assert json.loads(lines[0])["iterations"] == 6
+    from nmf_toolbox_tpu_torch import cli
+    assert cli.main(args + ["--out", str(tmp_path / "s.npz"), "--quiet"]) == 0
+    with np.load(tmp_path / "m.npz") as a, np.load(tmp_path / "s.npz") as b:
+        np.testing.assert_allclose(a["W"], b["W"], atol=1e-10)
+        np.testing.assert_allclose(a["H"], b["H"], atol=1e-10)

@@ -185,6 +185,19 @@ def test_guards_raise_value_error(cfg):
 
 
 def test_mesh_not_ported():
+    """A foreign mesh= raises a TypeError naming make_mesh; a one-rank
+    mesh gives the unmeshed result bit for bit, momentum state included
+    (the sharded cases are tests/test_torch_parallel.py's)."""
     V = np.random.default_rng(8).uniform(0.1, 1, (20, 20))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.nmf_hals(V, 3, maxiter=2, mesh=object(), **CPU)
+    from torch_mesh import one_rank
+    from nmf_toolbox_tpu_torch.parallel import make_mesh
+    for kw in ({}, {"extrapolate": True}):
+        a = tt.nmf_hals(V, 3, maxiter=4, **kw, **CPU)
+        with one_rank():
+            b = tt.nmf_hals(V, 3, maxiter=4, mesh=make_mesh(1), **kw)
+        assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+        np.testing.assert_array_equal(a.cost, b.cost)
+        if kw:
+            assert torch.equal(a.resume_state["Wy"], b.resume_state["Wy"])

@@ -222,9 +222,21 @@ def test_fused_k_limit():
 
 @pytest.mark.parametrize("cfg", [dict(mesh=object())])
 def test_not_ported_options_raise(cfg):
+    """mesh= takes the port's own mesh: a foreign object raises a
+    TypeError naming make_mesh, and a one-rank mesh runs the meshed path
+    bit-identically to no mesh (the multi-rank cases are
+    tests/test_torch_parallel.py's)."""
     V = np.random.default_rng(8).uniform(0.1, 1, (20, 20))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.nmf(V, 3, maxiter=2, **cfg, **CPU)
+    from torch_mesh import one_rank
+    from nmf_toolbox_tpu_torch.parallel import make_mesh
+    for div in ("euclidean", "kl"):
+        a = tt.nmf(V, 3, maxiter=4, divergence=div, **CPU)
+        with one_rank():
+            b = tt.nmf(V, 3, maxiter=4, divergence=div, mesh=make_mesh(1))
+        assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+        np.testing.assert_array_equal(a.cost, b.cost)
 
 
 @pytest.mark.parametrize("cost_every", [1, 3])

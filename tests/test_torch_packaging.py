@@ -67,10 +67,10 @@ def test_ops_all_equals_jax():
 
 
 def test_utils_all_equals_jax_less_orbax():
-    """The orbax checkpoints (directory checkpoints of sharded runs) wait
-    for the port's multi-GPU slice (ROADMAP queue 1 item 12); every
-    other name of the JAX package's utils is the port's own."""
-    orbax = ["save_factors_orbax", "load_factors_orbax", "wait_for_saves"]
-    assert tutils.__all__ == [n for n in jutils.__all__ if n not in orbax]
+    """Every name of the JAX package's utils is the port's own, the
+    directory checkpoints of sharded runs (save_factors_orbax,
+    load_factors_orbax, wait_for_saves, on torch.distributed.checkpoint)
+    included."""
+    assert tutils.__all__ == jutils.__all__
     for name in tutils.__all__:
         assert getattr(tutils, name).__module__.startswith("nmf_toolbox_tpu_torch.")

@@ -1,0 +1,230 @@
+"""Gloo ranks on the CPU for the port's mesh tests.
+
+:class:`Ranks` starts ``n`` processes once (a module-scoped fixture holds
+it), joins them into one Gloo process group through a ``file://``
+rendezvous in a temporary directory (no TCP port, so parallel pytest
+workers cannot collide) and runs every case in all of them: ``run(fn,
+*args)`` calls the module-level function ``fn`` on every rank and returns
+the ranks' results, rank 0 first.  Every wait is bounded: a case that
+deadlocks fails after ``timeout`` seconds, the ranks are killed and the
+next case starts fresh ones.  :func:`one_rank` is a one-process Gloo
+group in the test's own process, for the checks that need a mesh but no
+second rank.
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import multiprocessing as mp
+import os
+import queue
+import tempfile
+import traceback
+
+import numpy as np
+
+GROUP_TIMEOUT = 60  # seconds: a collective that waits longer raises
+JOIN_TIMEOUT = 10
+
+
+def _worker(rank, world, init_file, tasks, results):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    while True:
+        task = tasks.get()
+        if task is None:
+            break
+        fn, args, kwargs = task
+        try:
+            results.put((rank, True, fn(*args, **kwargs)))
+        except Exception as e:  # reported to the test, which decides
+            results.put((rank, False, (type(e).__name__, str(e),
+                                       traceback.format_exc())))
+    dist.destroy_process_group()
+
+
+class RankError(Exception):
+    """A case raised on a rank: ``kind`` and ``message`` are the
+    exception's type name and text."""
+
+    def __init__(self, kind, message, tb):
+        super().__init__(f"{kind}: {message}\n{tb}")
+        self.kind, self.message = kind, message
+
+
+class Ranks:
+    def __init__(self, n: int, timeout: float = 120.0):
+        self.n, self.timeout = n, timeout
+        self.procs = []
+
+    def _start(self):
+        ctx = mp.get_context("spawn")
+        self.dir = tempfile.TemporaryDirectory()
+        init_file = os.path.join(self.dir.name, "rendezvous")
+        self.results = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in range(self.n)]
+        self.procs = [ctx.Process(target=_worker, daemon=True,
+                                  args=(r, self.n, init_file, self.tasks[r],
+                                        self.results))
+                      for r in range(self.n)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` on every rank; the results by rank.  A
+        case that raised on any rank raises :class:`RankError` (rank 0's,
+        or the first one's) after every rank has answered."""
+        if not self.procs:
+            self._start()
+        for q in self.tasks:
+            q.put((fn, args, kwargs))
+        got = {}
+        try:
+            while len(got) < self.n:
+                rank, ok, value = self.results.get(timeout=self.timeout)
+                got[rank] = (ok, value)
+        except queue.Empty:
+            self.close(kill=True)
+            raise TimeoutError(f"{fn.__name__}: {self.n - len(got)} rank(s) gave "
+                               f"no answer within {self.timeout} s") from None
+        errors = [got[r][1] for r in range(self.n) if not got[r][0]]
+        if errors:
+            raise RankError(*errors[0])
+        return [got[r][1] for r in range(self.n)]
+
+    def solve(self, fn, *args, **kwargs):
+        """:func:`call` on every rank: rank 0's fields, once every rank's
+        are checked bit-identical to them."""
+        return same_on_ranks(self.run(call, fn, *args, **kwargs))
+
+    def close(self, kill=False):
+        if not self.procs:
+            return
+        if not kill:
+            for q in self.tasks:
+                q.put(None)
+        for p in self.procs:
+            p.join(JOIN_TIMEOUT if not kill else 0)
+            if p.is_alive():
+                p.kill()
+                p.join(JOIN_TIMEOUT)
+        self.procs = []
+        self.dir.cleanup()
+
+
+@contextlib.contextmanager
+def one_rank():
+    """A one-rank Gloo process group in this process, torn down on exit."""
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+_MESHES: dict = {}
+
+
+def mesh_of(kind):
+    """This rank's mesh of ``kind``: "1d" (every rank on the sample axis)
+    or "2d" (a (2, world/2) grid), built once per process."""
+    from nmf_toolbox_tpu_torch.parallel import make_mesh
+    import torch.distributed as dist
+    if kind not in _MESHES:
+        world = dist.get_world_size()
+        _MESHES[kind] = (make_mesh(world, device_type="cpu") if kind == "1d"
+                         else make_mesh(shape=(2, world // 2), device_type="cpu"))
+    return _MESHES[kind]
+
+
+def call(fn, *args, mesh=None, fields=("W", "H", "cost"), **kwargs):
+    """Rank side: ``fn`` (a dotted name, e.g. "nmf_toolbox_tpu_torch.nmf")
+    called with ``mesh=mesh_of(mesh)``; its Result's ``fields`` as NumPy."""
+    import importlib
+    mod, name = fn.rsplit(".", 1)
+    f = getattr(importlib.import_module(mod), name)
+    if mesh is not None:
+        kwargs["mesh"] = mesh_of(mesh)
+    return result_fields(f(*args, **kwargs), fields)
+
+
+def consensus(V, mesh, **kwargs):
+    """Rank side: ``consensus_stability`` on the mesh; its recommendation
+    and per-rank (consensus, cophenetic, mean cost)."""
+    import nmf_toolbox_tpu_torch as nt
+    sel = nt.consensus_stability(V, mesh=mesh_of(mesh), **kwargs)
+    return sel.recommended, [(s.consensus, s.cophenetic, s.mean_cost)
+                             for s in sel.stats]
+
+
+def estimator(X, mesh, **kwargs):
+    """Rank side: ``estimators.NMF(mesh=...).fit_transform(X)``; the
+    components, the transform and the cost trace."""
+    from nmf_toolbox_tpu_torch.estimators import NMF
+    est = NMF(mesh=mesh_of(mesh), **kwargs)
+    H = est.fit_transform(X)
+    return est.components_, H, est.cost_trace_
+
+
+def run_cli(argv):
+    """Rank side: ``cli.main(argv)`` in this process; (exit code, stdout)."""
+    import contextlib
+    import io
+    from nmf_toolbox_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def host(x):
+    """A result as NumPy: tensors (and lists of them) to arrays."""
+    import torch
+    if isinstance(x, (list, tuple)):
+        return type(x)(host(v) for v in x)
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x) if isinstance(x, np.ndarray) else x
+
+
+def result_fields(res, fields=("W", "H", "cost")):
+    """The named fields of a solver Result as NumPy, with n_iters."""
+    out = {f: host(getattr(res, f)) for f in fields}
+    out["n_iters"] = int(res.n_iters)
+    return out
+
+
+def same_on_ranks(results):
+    """Rank 0's result, after checking every rank's is bit-identical."""
+    assert_ranks_identical(results)
+    return results[0]
+
+
+def assert_ranks_identical(results):
+    """Every rank's result is bit-identical to rank 0's."""
+    first = results[0]
+    for r, other in enumerate(results[1:], 1):
+        _identical(first, other, f"rank {r}")
+
+
+def _identical(a, b, where):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _identical(a[k], b[k], f"{where} {k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _identical(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    else:
+        assert a == b, (where, a, b)
