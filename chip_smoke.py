@@ -182,16 +182,17 @@ without printing the last line:
    ``iteration_logger`` through ``callback=`` prints 3 lines.
 16. mesh= on the card (~60 s).  One NCCL rank (``init_distributed`` with
    world size 1, ``make_mesh(1)``): ``nmf`` fused KL and IS at 40 000x10 000
-   r100, gram and ``nmf_hals`` at 100 000x10 000 r200 on phase 7's V, 10
+   r100, gram on phase 7's V and ``nmf_hals`` on a V of rank 200 plus
+   noise at 100 000x10 000 r200, ``nmf`` gram with ``init="nndsvd"`` and
+   ``nmf_hals`` with ``init="nndsvda"`` on that V as a host array, 10
    iterations each, and ``nmf_batched`` euclidean and ``nmf_encode`` KL on
    phase 9's batch, each bit-identical to the same call with no mesh, ms
    per iteration (or call) of both and collectives per iteration; the
    fused kernels' counters, set to 0 before, above 0 after.  Then two
    ranks spawned by the script, sharing the card over Gloo (``make_mesh(2)``):
-   the same runs at 5 iterations and the engines on the batch split in
-   two, the ranks bit-identical to each other and within 1e-4 of one rank
-   (W, H and the cost; for HALS, whose factors on that uniform V are
-   ill-determined, the cost), with each rank's ms, collectives and device
+   the first four runs at 5 iterations and the engines on the batch split
+   in two, the ranks bit-identical to each other and within 1e-4 of one
+   rank (W, H and the cost), with each rank's ms, collectives and device
    memory peak, and each rank's fused-kernel counters, set to 0 before,
    above 0 (kl_phi_dot_ht_dma's at 0, on one rank and on two); ``run_checkpointed(nmf, method="fused", backend="orbax")``
    over the two ranks, 20 iterations in chunks of 5, straight through and
@@ -2224,7 +2225,12 @@ def phase15_utilities_front_ends(torch, fk, V_big):
 def mesh_inputs(torch, V_gram=None):
     """Phase 16's inputs, drawn on the card from seeds, so that every
     process draws the same: the fused runs' V (MAIN) and inits, phase 7's
-    V (GRAM, redrawn unless given) and the gram inits."""
+    V (GRAM, redrawn unless given) and the gram inits, and at the gram
+    shape a V of sparse rank-k factors plus noise with inits of the same
+    sparsity scaled to its mean.  HALS runs on the latter: its factors
+    are well determined there, while on phase 7's uniform V (or from
+    dense inits, whose rows are near parallel) the order of a sum moves
+    the factors far more than the objective."""
     g = torch.Generator(device="cuda").manual_seed(16)
     m, n, k = MAIN
     Vf = 0.1 + 0.9 * torch.rand((m, n), generator=g, device="cuda")
@@ -2234,22 +2240,41 @@ def mesh_inputs(torch, V_gram=None):
         g0 = torch.Generator(device="cuda").manual_seed(0)
         V_gram = 0.05 + 0.95 * torch.rand((m, n), generator=g0, device="cuda")
     Wg, Hg = (torch.rand(s, generator=g, device="cuda") for s in ((m, k), (k, n)))
-    return Vf, Wf, Hf, V_gram, Wg, Hg
+
+    def sparse(shape):  # a tenth of the entries uniform, the rest 0
+        x = torch.rand(shape, generator=g, device="cuda")
+        return x.mul_(torch.rand(shape, generator=g, device="cuda") < 0.1)
+    Vl = torch.rand((m, n), generator=g, device="cuda").mul_(0.01)
+    Vl.addmm_(sparse((m, k)), sparse((k, n)))
+    Wl, Hl = sparse((m, k)), sparse((k, n))
+    scale = float(Vl.mean() / (Wl.mean(0) @ Hl.mean(1))) ** 0.5
+    return Vf, Wf, Hf, V_gram, Wg, Hg, Vl, Wl.mul_(scale), Hl.mul_(scale)
 
 
 def mesh_runs(inputs, iters, mesh):
-    """The solves phase 16 runs with and without a mesh: name -> call.
-    HALS starts from its seeded default inits (unit-L2 W, as phase 7's
-    runs)."""
+    """The solves phase 16 runs with and without a mesh: name -> call."""
     from nmf_toolbox_tpu_torch import nmf, nmf_hals
-    Vf, Wf, Hf, Vg, Wg, Hg = inputs
+    Vf, Wf, Hf, Vg, Wg, Hg, Vl, Wl, Hl = inputs
     one = dict(maxiter=iters, tolerance=NEVER, mesh=mesh)
     fused = dict(W_init=Wf, H_init=Hf, method="fused", **one)
     return {
         "nmf fused kl": lambda: nmf(Vf, MAIN[2], divergence="kl", **fused),
         "nmf fused is": lambda: nmf(Vf, MAIN[2], divergence="is", **fused),
         "nmf gram": lambda: nmf(Vg, GRAM[2], W_init=Wg, H_init=Hg, method="gram", **one),
-        "nmf_hals": lambda: nmf_hals(Vg, GRAM[2], seed=0, **one),
+        "nmf_hals": lambda: nmf_hals(Vl, GRAM[2], W_init=Wl, H_init=Hl, **one),
+    }
+
+
+def mesh_nndsvd(V_host, iters, mesh):
+    """The SVD-seeded solves of the one-rank runs, V a host array as the
+    CLI gives it: under a mesh the seeding runs on the card as without,
+    on the whole V, and the placement takes each rank's block from the
+    host."""
+    from nmf_toolbox_tpu_torch import nmf, nmf_hals
+    one = dict(maxiter=iters, tolerance=NEVER, mesh=mesh)
+    return {
+        "nmf gram nndsvd": lambda: nmf(V_host, GRAM[2], init="nndsvd", method="gram", **one),
+        "nmf_hals nndsvda": lambda: nmf_hals(V_host, GRAM[2], init="nndsvda", **one),
     }
 
 
@@ -2318,7 +2343,7 @@ def mesh_rank(rank, tmp, queue):
             torch.cuda.reset_peak_memory_stats()
             calls = collectives.calls
             res, ms = wall_ms(torch, run)
-            iters = res.n_iters if name.startswith("nmf ") or name == "nmf_hals" else 1
+            iters = res.n_iters if name.startswith(("nmf ", "nmf_hals")) else 1
             unit = "iter" if iters > 1 else "call"
             out[name] = {f"ms_per_{unit}": ms / iters,
                          f"collectives_per_{unit}": (collectives.calls - calls) / iters,
@@ -2329,6 +2354,7 @@ def mesh_rank(rank, tmp, queue):
         # orbax checkpoints of the fused KL run, every rank writing its blocks
         say(f"phase 16 rank {rank}: run_checkpointed")
         Vf, Wf, Hf = inputs[:3]
+        del inputs, runs
         kw = dict(W_init=Wf, H_init=Hf, method="fused", divergence="kl",
                   tolerance=NEVER, mesh=mesh)
         total, chunk, k = CKPT_ITERS, CKPT_CHUNK, MAIN[2]
@@ -2372,12 +2398,15 @@ def phase16_mesh(torch, fk, V_gram):
     t0 = time.perf_counter()
     summary = {"one_rank_nccl": {}, "two_ranks_gloo": {}}
     inputs, batch = mesh_inputs(torch, V_gram), engine_inputs(torch)
+    V_host = inputs[6].cpu().numpy()
     with tempfile.TemporaryDirectory() as tmp:
         init_distributed(f"file://{tmp}/rendezvous", 1, 0, backend="nccl",
                          timeout=MESH_TIMEOUT)
         mesh = make_mesh(1)
-        plain = dict(mesh_runs(inputs, ITERS, None), **mesh_engines(batch, None))
-        meshed = dict(mesh_runs(inputs, ITERS, mesh), **mesh_engines(batch, mesh))
+        plain = dict(mesh_runs(inputs, ITERS, None), **mesh_nndsvd(V_host, ITERS, None),
+                     **mesh_engines(batch, None))
+        meshed = dict(mesh_runs(inputs, ITERS, mesh), **mesh_nndsvd(V_host, ITERS, mesh),
+                      **mesh_engines(batch, mesh))
         zero_fused_counts(fk)
         dk.kl_phi_dot_ht_dma_launches = 0
         for name in plain:
@@ -2386,7 +2415,7 @@ def phase16_mesh(torch, fk, V_gram):
             a, ms_a = wall_ms(torch, plain[name])
             calls = collectives.calls
             b, ms_b = wall_ms(torch, meshed[name])
-            per = a.n_iters if name.startswith("nmf ") or name == "nmf_hals" else 1
+            per = a.n_iters if name.startswith(("nmf ", "nmf_hals")) else 1
             if not same_result(torch, a, b):
                 raise AssertionError(f"phase 16 {name}: a one-rank NCCL mesh is not "
                                      "bit-identical to no mesh")
@@ -2401,7 +2430,7 @@ def phase16_mesh(torch, fk, V_gram):
         say(f"phase 16 one NCCL rank, kernel launches: {json.dumps(launches)}")
         check_mesh_launches(launches, "one NCCL rank")
         dist.destroy_process_group()
-        del plain, meshed
+        del plain, meshed, V_host
         torch.cuda.empty_cache()
 
         # The single-rank references of the two-rank runs.
@@ -2441,12 +2470,7 @@ def phase16_mesh(torch, fk, V_gram):
         say(f"phase 16 two Gloo ranks, {name}: ranks bit-identical; from one rank "
             f"W {gap['W']:.3g}, H {gap['H']:.3g}, cost {gap['cost']:.3g} relative; "
             f"{json.dumps(row['ranks'])}")
-        # HALS on phase 7's uniform V: its factors are ill-determined (H
-        # grows to ~1e7 as components die and the sweeps divide by their
-        # near-zero diagonals), so a change of summation order moves them;
-        # its objective is held.
-        held = {"cost": gap["cost"]} if name == "nmf_hals" else gap
-        if max(held.values()) > MESH_RTOL:
+        if max(gap.values()) > MESH_RTOL:
             raise AssertionError(f"phase 16 {name}: two ranks are {gap} from one rank, "
                                  f"beyond {MESH_RTOL}")
     for r in (0, 1):

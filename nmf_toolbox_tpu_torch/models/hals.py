@@ -188,6 +188,10 @@ def nmf_hals(V, num_basis_elems: int, config: dict | None = None, **kwargs):
             raise ValueError("init='nndsvd*' cannot be combined with "
                              "W_init/H_init")
         cdt = torch.promote_types(dtype, torch.float32)
+        # The seeding reads the whole V on the run's device, so under a
+        # mesh too the whole arrays stay there and placement cuts them.
+        src = device
+        V = V.to(src)
         Vs = seedable(V) if weights is not None else V
         W0, H0 = nndsvd(Vs.to(cdt), k, generator=gen, variant=init)
     if W0 is None:

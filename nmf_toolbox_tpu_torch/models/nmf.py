@@ -329,6 +329,10 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
         if S != 1:
             raise ValueError("init='nndsvd*' supports a single source")
         cdt = torch.promote_types(dtype, torch.float32)
+        # The seeding reads the whole V on the run's device, so under a
+        # mesh too the whole arrays stay there and placement cuts them.
+        src = device
+        V = V.to(src)
         Vs = seedable(V) if weights is not None else V
         Wn, Hn = nndsvd(Vs.to(cdt), ks[0], generator=gen, variant=init)
         # The solver normalizes W columns to unit L2 (nmf.m:132-134);

@@ -14,9 +14,7 @@ Each function is the identity when ``mesh`` is None, and along an axis
 the mesh does not carry; it reduces several tensors in one collective
 (one flat buffer) and returns them in the order given.  The sums reduce
 in place: pass tensors that nothing else holds.  Only ``all_reduce`` and
-``all_gather`` are used; a Gloo group gathers CUDA tensors through an
-``all_reduce`` of zero-filled whole buffers, since Gloo does not gather
-CUDA tensors for every collective.
+``all_gather`` are used; both carry CUDA tensors over NCCL and Gloo.
 """
 from __future__ import annotations
 
@@ -71,47 +69,39 @@ def sum_all(mesh, *xs):
     return _reduce(mesh, None, xs)
 
 
+def _gather(group, size: int, x, dim: int):
+    """The blocks that the ``size`` ranks of ``group`` hold along ``dim``,
+    joined in rank order, on every rank."""
+    global calls
+    import torch.distributed as dist
+    calls += 1
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
 def gather_factor(mesh, x, axis: str, dim: int):
     """The whole tensor whose blocks along ``dim`` the ranks of ``axis``
     hold, in the axis' order, on every rank; ``x`` itself with no mesh
     or an axis the mesh does not carry."""
-    global calls
     if mesh is None or axis not in mesh.shape:
         return x
     if x.is_complex():
         return torch.view_as_complex(
             gather_factor(mesh, torch.view_as_real(x), axis, dim))
-    import torch.distributed as dist
-    group, size = mesh.group(axis), mesh.size(axis)
-    calls += 1
-    x = x.movedim(dim, 0).contiguous()
-    if x.is_cuda and dist.get_backend(group) == "gloo":
-        full = torch.zeros((size * x.shape[0],) + tuple(x.shape[1:]),
-                           dtype=x.dtype, device=x.device)
-        full[mesh.coord(axis) * x.shape[0]:(mesh.coord(axis) + 1) * x.shape[0]] = x
-        dist.all_reduce(full, group=group)
-    else:
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x, group=group)
-        full = torch.cat(parts)
-    return full.movedim(0, dim).contiguous()
+    return _gather(mesh.group(axis), mesh.size(axis), x, dim)
 
 
 def dtensor_whole(x):
     """The whole tensor of a ``DTensor`` whose shards divide evenly (a
-    restore of ``utils.load_factors_orbax``), gathered with
-    ``all_gather`` over each sharded mesh dimension's group.  Not
-    ``DTensor.full_tensor()``: its functional collectives hung over Gloo
-    on CUDA tensors (torch 2.11, H100)."""
-    global calls
-    import torch.distributed as dist
+    restore of ``utils.load_factors_orbax``), gathered over each sharded
+    mesh dimension's group.  Not ``DTensor.full_tensor()``: its
+    functional collectives hung over Gloo on CUDA tensors (torch 2.11,
+    H100)."""
     local = x.to_local()
     for i, p in enumerate(x.placements):
-        if not p.is_shard():
-            continue
-        calls += 1
-        group = x.device_mesh.get_group(i)
-        parts = [torch.empty_like(local) for _ in range(x.device_mesh.size(i))]
-        dist.all_gather(parts, local.contiguous(), group=group)
-        local = torch.cat(parts, dim=p.dim)
+        if p.is_shard():
+            local = _gather(x.device_mesh.get_group(i), x.device_mesh.size(i),
+                            local, p.dim)
     return local

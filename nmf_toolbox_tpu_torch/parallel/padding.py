@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import as_tensor
+from ..core import as_tensor, staging_device
 from .mesh import FEATURE_AXIS, SAMPLE_AXIS, apply_placements
 
 
@@ -69,9 +69,7 @@ def prepare_weights(weights, dtype, shape, mesh, solver: str,
     """
     if weights is None:
         return None
-    src = device if mesh is None else (
-        weights.device if torch.is_tensor(weights) else torch.device("cpu"))
-    weights = as_tensor(weights, dtype, src)
+    weights = as_tensor(weights, dtype, staging_device(weights, device, mesh))
     if tuple(weights.shape) != tuple(shape):
         raise ValueError(f"weights has shape {tuple(weights.shape)}, "
                          f"expected {tuple(shape)}")

@@ -38,7 +38,7 @@ from ..core import is_dtensor, to_host
 
 _FACTOR_KEYS = ("W", "H", "P", "G", "S", "Z")
 _PENDING: dict = {}  # path -> (future, partial directory)
-_GROUP = None        # the Gloo group the checkpoints' own collectives use
+_GROUP = (None, None)  # (default group, the Gloo group made from it)
 
 
 def _dist():
@@ -48,11 +48,15 @@ def _dist():
 def _group():
     """A Gloo group of every rank, for DCP's planning collectives: an
     async save runs them in a background thread, which must not share a
-    group with the solver's collectives in the foreground."""
+    group with the solver's collectives in the foreground.  Made anew
+    for each default process group; None when there is none."""
     global _GROUP
-    if _GROUP is None and _dist():
-        _GROUP = torch.distributed.new_group(backend="gloo")
-    return _GROUP
+    if not _dist():
+        return None
+    world = torch.distributed.group.WORLD
+    if _GROUP[0] is not world:
+        _GROUP = (world, torch.distributed.new_group(backend="gloo"))
+    return _GROUP[1]
 
 
 def _barrier():

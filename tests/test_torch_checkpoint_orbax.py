@@ -159,3 +159,25 @@ def test_unknown_backend_rejected(tmp_path):
         run_checkpointed(tt.nmf, V, 4, total_iters=4, chunk=2,
                          path=tmp_path / "x", backend="hdf5",
                          W_init=W0, H_init=H0, **CPU)
+
+
+def test_group_follows_the_process_group(tmp_path):
+    """The checkpoints' own Gloo group is made anew for each default
+    process group: a save and a load in a second group after the first
+    was destroyed, and in no group at all, run and round-trip."""
+    from nmf_toolbox_tpu_torch.utils import checkpoint_orbax as co
+    from torch_mesh import one_rank
+    V, W0, H0 = _problem()
+    res = tt.nmf(V, 4, W_init=W0, H_init=H0, maxiter=3, tolerance=1e-30,
+                 dtype=np.float64, **CPU)
+    groups = []
+    for i in range(2):
+        with one_rank():
+            save_factors_orbax(tmp_path / f"ck{i}", res)
+            groups.append(co._group())
+            inits = load_factors_orbax(tmp_path / f"ck{i}")
+            np.testing.assert_array_equal(inits["W_init"], host(res.W))
+    assert groups[0] is not groups[1] and co._group() is None
+    save_factors_orbax(tmp_path / "ck2", res)
+    np.testing.assert_array_equal(load_factors_orbax(tmp_path / "ck2")["H_init"],
+                                  host(res.H))

@@ -214,6 +214,16 @@ def test_nmf_stop_rule_on_mesh(ranks):
     close(got, single)
 
 
+@pytest.mark.parametrize("solver", ["nmf", "nmf_hals"])
+def test_nndsvd_init_on_mesh(ranks, solver):
+    """init='nndsvd*' under a mesh seeds from the whole V on the mesh's
+    device, as the call with no mesh seeds on its own: the same factors."""
+    V = make_problem(m=32, n=64)[0]
+    kw = dict(init="nndsvda", maxiter=10, **F64)
+    got = ranks.solve(f"nmf_toolbox_tpu_torch.{solver}", V, 4, mesh="1d", **kw)
+    close(got, getattr(tt, solver)(V, 4, **kw, **CPU))
+
+
 # ---------------------------------------------------------------------------
 # nmf_hals
 # ---------------------------------------------------------------------------
