@@ -198,8 +198,34 @@ without printing the last line:
    over the two ranks, 20 iterations in chunks of 5, straight through and
    crash-resumed, bit-identical to one meshed call, with the ms per save.
    A real multi-card NCCL mesh is not run: the machine has one card.
+17. mesh= for the rest of the solvers (~1.5 min).  One NCCL rank, 5
+   iterations each, every input a tensor on the card: ``lnmf``,
+   ``seminmf``, ``convexnmf``, ``chnmf`` and ``constrainednmf`` KL at
+   100 000x10 000 r200 on phase 7's V with phase 12's inits, ``symnmf``
+   on phase 12's planted n = 10 000 r20, ``cnmf`` gram and KL and
+   ``nmf2d`` KL (P5) at 513x10 000 r64 T8, ``chcnmf`` at 100 000x10 000
+   r200 T8 p500, ``nmfsc`` at 5000x2000 r50 H_sparsity 0.6, ``cnmfsc``
+   at 513x10 000 r64 T8 H_sparsity 0.5, ``cmfwisa`` complex64 at
+   513x5000 r32, and one epoch of ``nmf_streaming`` of phase 7's V from
+   a host copy: each bit-identical (every field) to the same call with
+   no mesh, with ms per iteration of both and collectives per
+   iteration.  Then two Gloo ranks spawned by the script sharing the
+   card (``make_mesh(2)``): cnmf gram, nmf2d KL, chcnmf and cnmfsc at
+   those shapes (the T - 1 columns of context cross the split),
+   ``nmfsc`` with both factors sparse and ``constrainednmf`` KL on
+   5000x2000 r50 with 40 % of the columns unlabeled (labeled columns on
+   both ranks), ``symnmf`` at n = 9 999 (padded to two ranks),
+   ``cmfwisa`` and one epoch of ``nmf_streaming`` at 20 000x10 000 r100
+   from the host: the ranks bit-identical to each other and within 1e-4
+   of one rank on W, H and the cost, nmfsc and cnmfsc in f64 within
+   1e-9 (their line searches compare summed objectives, whose f32 order
+   could flip a decision).  The four kernels' counters, set to 0 at the
+   phase's start, read 0 at its end on every process; the phase prints
+   its wall time.
 
-Then a JSON line of per-kernel results and, last, the device line.  A
+Then the card's name and power limit once more (a long log's tail
+keeps them), a JSON line of per-kernel results and, last, the device
+line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
 three fused kernels, phase 6 (the only path that runs it) for
 kl_phi_dot_ht_dma, each counter set to 0 just before;
@@ -296,6 +322,9 @@ ENGINE_ITERS = 100  # phases 9 and 10
 MESH_RANK_ITERS = 5   # phase 16's two-rank runs
 MESH_RTOL = 1e-4      # two ranks vs one, f32 (the engines' threshold)
 MESH_TIMEOUT = 150    # seconds: phase 16's process groups and its ranks' answers
+MESH_RTOL_F64 = 1e-9  # phase 17's f64 two-rank runs vs one rank (tests/test_parallel.py)
+SYM17 = (9_999, 20)   # phase 17's two-rank symnmf: an odd n, padded to two ranks
+STREAM17 = (20_000, 10_000, 100)  # phase 17's two-rank nmf_streaming, one epoch
 # The card's peaks for a kernel's bound (H100 SXM data sheet): f32-accurate
 # tensor-core work in 3xTF32 (three TF32 products per f32 product) and
 # device memory.
@@ -2490,6 +2519,287 @@ def phase16_mesh(torch, fk, V_gram):
     say(f"phase 16 {json.dumps(summary)}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: mesh= for the rest of the solvers
+# ---------------------------------------------------------------------------
+
+def solver_inputs(torch, V_gram=None):
+    """Phase 17's one-rank inputs, drawn on the card from seeds: phase 7's
+    V (GRAM, redrawn unless given) with the Gram/MU family's inits, the
+    planted similarity of phase 12, the convolutive V and inits of phase
+    13, nmfsc's V of phase 14 and cmfwisa's complex V."""
+    g = torch.Generator(device="cuda").manual_seed(170)
+    rand = lambda *s: torch.rand(s, generator=g, device="cuda")  # noqa: E731
+    m, n, k = GRAM
+    if V_gram is None:
+        g0 = torch.Generator(device="cuda").manual_seed(0)
+        V_gram = 0.05 + 0.95 * torch.rand((m, n), generator=g0, device="cuda")
+    ini = {key: torch.from_numpy(x).cuda() if isinstance(x, np.ndarray) and x.dtype == np.float32
+           else x for key, x in family_inits(np.random.default_rng(12), m, n, k).items()}
+    A = torch.from_numpy(planted_similarity(np.random.default_rng(13), *SYM)[0]).cuda()
+    mc, nc, kc, T = CONV
+    p = CHCNMF[2]
+    ms, ns, ks = SPARSE_BASE
+    mx, nx, kx = CMF
+    Vx = torch.polar(0.1 + 0.9 * rand(mx, nx), 6.283 * rand(mx, nx))
+    return {"V": V_gram, "ini": ini, "A": A, "HA": 0.05 * rand(SYM[0], SYM[1]),
+            "Vc": 0.05 + 0.95 * rand(mc, nc), "Wc": rand(mc, kc, T), "Hc": rand(kc, nc),
+            "H3": rand(kc, nc, CONV_P), "Gch": rand(p, CHCNMF[0], CHCNMF[1]),
+            "Vs": 0.1 + 0.9 * rand(ms, ns), "Ws": rand(ms, ks), "Hs": rand(ks, ns),
+            "Vx": Vx, "Wx": rand(mx, kx), "Hx": rand(kx, nx)}
+
+
+def solver_runs(x, iters, mesh):
+    """The solves of phase 17's one NCCL rank, with or without a mesh:
+    name -> call().  Every input is a tensor on the card, so both runs
+    stage, normalize and draw on the card alike."""
+    import nmf_toolbox_tpu_torch as tt
+    one = dict(maxiter=iters, tolerance=NEVER, mesh=mesh)
+    V, ini = x["V"], x["ini"]
+    m, n, k = GRAM
+    mc, nc, kc, T = CONV
+    runs = {f"{name} {m}x{n} r{k}": (lambda c=c: c()) for name, c in
+            family_calls(tt, V, k, ini, iters, mesh=mesh).items()}
+    runs.update({
+        f"symnmf n={SYM[0]} r{SYM[1]}": lambda: tt.symnmf(x["A"], SYM[1], H_init=x["HA"], **one),
+        f"cnmf euclidean gram {mc}x{nc} r{kc} T{T}": lambda: tt.cnmf(
+            x["Vc"], kc, T, W_init=x["Wc"], H_init=x["Hc"], method="gram", **one),
+        f"cnmf kl {mc}x{nc} r{kc} T{T}": lambda: tt.cnmf(
+            x["Vc"], kc, T, W_init=x["Wc"], H_init=x["Hc"], divergence="kl", **one),
+        f"nmf2d kl {mc}x{nc} r{kc} T{T} P{CONV_P}": lambda: tt.nmf2d(
+            x["Vc"], kc, T, CONV_P, W_init=x["Wc"], H_init=x["H3"], divergence="kl", **one),
+        f"chcnmf {m}x{n} r{CHCNMF[0]} T{CHCNMF[1]} p{CHCNMF[2]}": lambda: tt.chcnmf(
+            V, CHCNMF[0], CHCNMF[1], S_init=V[:, :CHCNMF[2]], G_init=x["Gch"],
+            H_init=ini["H"], **one),
+        f"nmfsc H_sparsity 0.6 {'x'.join(map(str, SPARSE_BASE[:2]))} r{SPARSE_BASE[2]}":
+            lambda: tt.nmfsc(x["Vs"], SPARSE_BASE[2], W_init=x["Ws"], H_init=x["Hs"],
+                             H_sparsity=0.6, **one),
+        f"cnmfsc H_sparsity 0.5 {mc}x{nc} r{kc} T{T}": lambda: tt.cnmfsc(
+            x["Vc"], kc, T, W_init=x["Wc"], H_init=x["Hc"], H_sparsity=0.5, **one),
+        f"cmfwisa complex64 {'x'.join(map(str, CMF[:2]))} r{CMF[2]}": lambda: tt.cmfwisa(
+            x["Vx"], CMF[2], W_init=x["Wx"], H_init=x["Hx"], **one),
+    })
+    return runs
+
+
+def result_equal(torch, a, b):
+    """Every field of two Results bit-identical, and the same n_iters."""
+    def same(u, v):
+        if isinstance(u, (list, tuple)):
+            return len(u) == len(v) and all(same(p, q) for p, q in zip(u, v))
+        if torch.is_tensor(u):
+            return torch.equal(u, v)
+        return np.array_equal(np.asarray(u), np.asarray(v))
+    return a.n_iters == b.n_iters and all(same(getattr(a, f), getattr(b, f)) for f in a.fields)
+
+
+def rank_inputs(torch):
+    """The two Gloo ranks' inputs, drawn on the card from seeds in every
+    process: the convolutive V of phase 13 with inits, phase 7's V for
+    chcnmf, nmfsc's V of phase 14 and constrainednmf on it with 40 %
+    unlabeled columns (so both halves hold labeled ones), a planted
+    similarity of odd n (symnmf pads it), cmfwisa's complex V and the
+    streamed V, host copies."""
+    g = torch.Generator(device="cuda").manual_seed(171)
+    rand = lambda *s: torch.rand(s, generator=g, device="cuda")  # noqa: E731
+    x = solver_inputs(torch)
+    ms, ns, ks = SPARSE_BASE
+    labels = np.random.default_rng(17).integers(0, LABEL_CLASSES, ns)
+    labels[np.random.default_rng(18).permutation(ns)[: 2 * ns // 5]] = -1
+    truth = np.arange(SYM17[0]) * SYM17[1] // SYM17[0]
+    A = (truth[:, None] == truth[None, :]) * 0.9 + 0.05 \
+        + 0.05 * np.random.default_rng(19).uniform(size=(SYM17[0],) * 2)
+    mt, nt, kt = STREAM17
+    x.update(labels=labels, Z=rand(ks, int(np.sum(labels < 0)) + LABEL_CLASSES),
+             A17=torch.from_numpy((A + A.T).astype(np.float32) / 2).cuda(),
+             HA17=0.05 * rand(SYM17[0], SYM17[1]),
+             Vt=(0.05 + 0.95 * rand(mt, nt)).cpu().numpy(), Wt=rand(mt, kt))
+    return x
+
+
+def rank_runs(x, iters, mesh):
+    """The solves phase 17 runs on two ranks and on one: name -> call().
+    nmfsc and cnmfsc run in f64: their line searches accept a trial when
+    a summed objective does not increase, and in f32 the order of the
+    sums (one rank's or two) can flip such a decision near a tie and send
+    the runs apart; in f64 the decisions agree and the results hold to
+    1e-9."""
+    import torch
+    import nmf_toolbox_tpu_torch as tt
+    one = dict(maxiter=iters, tolerance=NEVER, mesh=mesh)
+    f64 = dict(one, dtype=torch.float64)
+    mc, nc, kc, T = CONV
+    ms, ns, ks = SPARSE_BASE
+    m, n, k = GRAM
+    mt, nt, kt = STREAM17
+    return {
+        f"cnmf euclidean gram {mc}x{nc} r{kc} T{T}": lambda: tt.cnmf(
+            x["Vc"], kc, T, W_init=x["Wc"], H_init=x["Hc"], method="gram", **one),
+        f"nmf2d kl {mc}x{nc} r{kc} T{T} P{CONV_P}": lambda: tt.nmf2d(
+            x["Vc"], kc, T, CONV_P, W_init=x["Wc"], H_init=x["H3"], divergence="kl", **one),
+        f"chcnmf {m}x{n} r{CHCNMF[0]} T{CHCNMF[1]} p{CHCNMF[2]}": lambda: tt.chcnmf(
+            x["V"], CHCNMF[0], CHCNMF[1], S_init=x["V"][:, :CHCNMF[2]], G_init=x["Gch"],
+            H_init=x["ini"]["H"], **one),
+        f"cnmfsc H_sparsity 0.5 {mc}x{nc} r{kc} T{T} f64": lambda: tt.cnmfsc(
+            x["Vc"], kc, T, W_init=x["Wc"], H_init=x["Hc"], H_sparsity=0.5, **f64),
+        f"nmfsc W_sparsity 0.5 H_sparsity 0.6 {ms}x{ns} r{ks} f64": lambda: tt.nmfsc(
+            x["Vs"], ks, W_init=x["Ws"], H_init=x["Hs"], W_sparsity=0.5, H_sparsity=0.6, **f64),
+        f"constrainednmf kl {ms}x{ns} r{ks}": lambda: tt.constrainednmf(
+            x["Vs"], x["labels"], ks, W_init=x["Ws"], Z_init=x["Z"], divergence="kl", **one),
+        f"symnmf n={SYM17[0]} r{SYM17[1]}": lambda: tt.symnmf(
+            x["A17"], SYM17[1], H_init=x["HA17"], **one),
+        f"cmfwisa complex64 {'x'.join(map(str, CMF[:2]))} r{CMF[2]}": lambda: tt.cmfwisa(
+            x["Vx"], CMF[2], W_init=x["Wx"], H_init=x["Hx"], **one),
+        f"nmf_streaming one epoch {mt}x{nt} r{kt} from the host": lambda: tt.nmf_streaming(
+            x["Vt"], kt, W_init=x["Wt"], epochs=1, block_size=STREAM_BLOCK, return_H=True,
+            mesh=mesh),
+    }
+
+
+def mesh17_rank(rank, tmp, queue):
+    """One of phase 17's two Gloo ranks sharing the card: rank_runs on a
+    mesh of two, the results to ``tmp`` and the numbers to ``queue``."""
+    import faulthandler
+    import os
+    import traceback
+    os.environ["LOCAL_RANK"] = str(rank)
+    faulthandler.dump_traceback_later(MESH_TIMEOUT - 30)
+    try:
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
+        from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
+        from nmf_toolbox_tpu_torch.parallel import collectives, init_distributed, make_mesh
+        init_distributed(f"file://{tmp}/rendezvous17", 2, rank, backend="gloo",
+                         timeout=MESH_TIMEOUT)
+        mesh = make_mesh(2)
+        out, saved = {"rank": rank}, {}
+        zero_fused_counts(fk)
+        dk.kl_phi_dot_ht_dma_launches = 0
+        for name, run in rank_runs(rank_inputs(torch), MESH_RANK_ITERS, mesh).items():
+            calls = collectives.calls
+            res, ms = wall_ms(torch, run)
+            out[name] = {"ms": ms, "collectives": collectives.calls - calls}
+            saved[name] = factors(torch, res)
+        out["launches"] = dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches})
+        torch.save(saved, f"{tmp}/rank17_{rank}.pt")
+        torch.distributed.destroy_process_group()
+        queue.put((rank, out))
+    except Exception:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def factors(torch, res):
+    """A Result's W and H (those it has) on the host as tensors, and its
+    cost trace."""
+    out = {f: (x.cpu() if torch.is_tensor(x) else torch.from_numpy(np.asarray(x)))
+           for f in ("W", "H") if (x := getattr(res, f)) is not None}
+    out["cost"] = np.asarray(res.cost)
+    return out
+
+
+def phase17_mesh_solvers(torch, fk, V_gram):
+    """mesh= for the solvers this slice ports: one NCCL rank bit-identical
+    to no mesh at the shapes of phases 12-14 (timed in turns), two Gloo
+    ranks sharing the card identical to each other and within MESH_RTOL
+    (f64 solvers: 1e-9) of one rank, and no fused kernel launched."""
+    import multiprocessing
+    import tempfile
+    import torch.distributed as dist
+    import nmf_toolbox_tpu_torch as tt
+    from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
+    from nmf_toolbox_tpu_torch.parallel import collectives, init_distributed, make_mesh
+    t0 = time.perf_counter()
+    zero_fused_counts(fk)
+    dk.kl_phi_dot_ht_dma_launches = 0
+    summary = {"one_rank_nccl": {}, "two_ranks_gloo": {}}
+    x = solver_inputs(torch, V_gram)
+    V_host = V_gram.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/rendezvous", 1, 0, backend="nccl", timeout=MESH_TIMEOUT)
+        mesh = make_mesh(1)
+        stream = f"nmf_streaming one epoch {GRAM[0]}x{GRAM[1]} r{GRAM[2]} from the host"
+        plain, meshed = (dict(solver_runs(x, MESH_RANK_ITERS, msh), **{
+            stream: lambda msh=msh: tt.nmf_streaming(
+                V_host, GRAM[2], W_init=x["ini"]["W"], epochs=1, block_size=STREAM_BLOCK,
+                mesh=msh)}) for msh in (None, mesh))
+        for name in plain:
+            plain[name]()  # warm-ups
+            meshed[name]()
+            # in turns (no mesh, mesh, mesh, no mesh): each time the mean of two
+            a, ms_a = wall_ms(torch, plain[name])
+            calls = collectives.calls
+            b, ms_b = wall_ms(torch, meshed[name])
+            calls = collectives.calls - calls
+            ms_b += wall_ms(torch, meshed[name])[1]
+            ms_a += wall_ms(torch, plain[name])[1]
+            if not result_equal(torch, a, b):
+                raise AssertionError(f"phase 17 {name}: a one-rank NCCL mesh is not "
+                                     "bit-identical to no mesh")
+            per = 2 * max(a.n_iters, 1)
+            row = {"ms_per_iter_no_mesh": ms_a / per, "ms_per_iter_mesh": ms_b / per,
+                   "collectives_per_iter": 2 * calls / per, "n_iters": a.n_iters}
+            summary["one_rank_nccl"][name] = row
+            say(f"phase 17 one NCCL rank, {name}: bit-identical to no mesh; "
+                f"{row['ms_per_iter_mesh']:.3f} ms/iter against {row['ms_per_iter_no_mesh']:.3f} "
+                f"without (two calls of {a.n_iters} iterations each, in turns, one-time work "
+                f"included); {row['collectives_per_iter']:g} collectives per iteration")
+        dist.destroy_process_group()
+        del plain, meshed, x, V_host
+        torch.cuda.empty_cache()
+
+        # The single-rank references of the two-rank runs.
+        refs = {}
+        for name, run in rank_runs(rank_inputs(torch), MESH_RANK_ITERS, None).items():
+            refs[name] = factors(torch, run())
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        queue = ctx.Queue()
+        procs = [ctx.Process(target=mesh17_rank, args=(r, tmp, queue)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            got = dict(queue.get(timeout=MESH_TIMEOUT) for _ in procs)
+        finally:
+            for p in procs:
+                p.join(30)
+                if p.is_alive():
+                    p.kill()
+        for r in (0, 1):
+            if "error" in got[r]:
+                raise AssertionError(f"phase 17 rank {r} failed:\n{got[r]['error']}")
+        saved = [torch.load(f"{tmp}/rank17_{r}.pt", weights_only=False) for r in (0, 1)]
+    for name, ref in refs.items():
+        a, b = (sv[name] for sv in saved)
+        fields = [f for f in ("W", "H") if f in ref]
+        if not all(torch.equal(a[f], b[f]) for f in fields) or \
+                not np.array_equal(a["cost"], b["cost"]):
+            raise AssertionError(f"phase 17 {name}: the two ranks differ")
+        gap = {f: max_rel(a[f], ref[f]) for f in fields}
+        gap["cost"] = (float(np.max(np.abs(a["cost"] / ref["cost"] - 1)))
+                       if a["cost"].shape == ref["cost"].shape else float("inf"))
+        tol = MESH_RTOL_F64 if name.endswith("f64") else MESH_RTOL
+        row = {"rank_identical": True, "vs_one_rank": gap, "rtol": tol,
+               "ranks": [got[r][name] for r in (0, 1)]}
+        summary["two_ranks_gloo"][name] = row
+        say(f"phase 17 two Gloo ranks, {name}: ranks bit-identical; from one rank "
+            f"{', '.join(f'{f} {v:.3g}' for f, v in gap.items())} relative "
+            f"(allowed {tol:g}); {json.dumps(row['ranks'])}")
+        if not max(gap.values()) <= tol:
+            raise AssertionError(f"phase 17 {name}: two ranks are {gap} from one rank, "
+                                 f"beyond {tol}")
+    launches = dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches})
+    ranks_launches = [got[r]["launches"] for r in (0, 1)]
+    summary["launches"] = {"one_rank": launches, "two_ranks": ranks_launches}
+    say(f"phase 17 kernel launches: one rank {json.dumps(launches)}, two ranks "
+        f"{json.dumps(ranks_launches)}")
+    if any(launches.values()) or any(v for rl in ranks_launches for v in rl.values()):
+        raise AssertionError(f"phase 17 launched a fused kernel: {summary['launches']}")
+    summary["phase_s"] = time.perf_counter() - t0
+    say(f"phase 17 wall time {summary['phase_s']:.1f} s")
+    say(f"phase 17 {json.dumps(summary)}")
+
+
 def main():
     import torch
     phase0_device(torch)
@@ -2550,6 +2860,7 @@ def main():
         raise AssertionError(f"phase 14 launched a kernel: {launches}")
     phase15_utilities_front_ends(torch, fk, V)
     phase16_mesh(torch, fk, V)
+    phase17_mesh_solvers(torch, fk, V)
     del V
 
     def per_iter(name):
@@ -2581,6 +2892,7 @@ def main():
         "bound_by": dma_stats["bound_by"], "library_ms": None,
         "tflops": dma_stats["tflops"],
     })
+    say(card())  # again, where the tail of a long log keeps it
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

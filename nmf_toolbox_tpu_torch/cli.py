@@ -13,8 +13,10 @@ The same flags as ``nmf-tpu``, plus ``--device`` (default: the CUDA card;
 utils.checkpoint.load_factors of either package (and therefore resumable
 straight back into the solvers).
 
-``--mesh N`` shards nmf, nmf_hals, encode and the --pick-rank sweep over
-N processes, one per device, started by torchrun:
+``--mesh N`` shards every solver, ``separate``'s fits, ``nmf
+--streaming`` and the --pick-rank sweep over N processes, one per device,
+started by torchrun (``encode --streaming`` is the one-device
+out-of-core path and refuses it, as the JAX package's CLI does):
 
     torchrun --nproc-per-node 4 -m nmf_toolbox_tpu_torch nmf V.npy --k 32 --mesh 4 --out f.npz
 
@@ -31,9 +33,6 @@ import os
 import sys
 
 import numpy as np
-
-NOT_PORTED = ("is not ported to nmf_toolbox_tpu_torch yet (ROADMAP queue 1 "
-              "item 12, multi-GPU)")
 
 SOLVERS = ("nmf", "nmf_hals", "nmfsc", "cnmf", "cnmfsc", "cmfwisa", "lnmf",
            "convexnmf", "seminmf", "chnmf", "chcnmf", "constrainednmf",
@@ -200,14 +199,16 @@ def _read_signal(path):
     return np.asarray(x, np.float64), None
 
 
-def _cmd_separate(args):
+def _cmd_separate(args, mesh=None):
     """Source separation: mixture (wav / 1-D signal / 2-D spectrogram)
     -> per-source dictionaries (--dicts, or learned from --solos) ->
     W_fixed multi-source encode -> soft masks -> stems.
 
     Wav / signal input goes through the on-device STFT and the stems
     come back through iSTFT (utils/audio.py); spectrogram input skips
-    the transform and stems are written as .npy."""
+    the transform and stems are written as .npy.  With ``--mesh`` the
+    fits (nmf of the solos, the W_fixed nmf or cmfwisa of the mixture)
+    run sharded on every rank, and rank 0 writes the stems."""
     import nmf_toolbox_tpu_torch as nt
     from .core import to_host
 
@@ -276,6 +277,8 @@ def _cmd_separate(args):
                      ("H_sparsity", args.h_sparsity), ("dtype", args.dtype)]:
         if val is not None:
             cfg[key] = val
+    if mesh is not None:
+        cfg["mesh"] = mesh
 
     ys = None  # waveforms, when a fused decode produced them directly
     try:
@@ -390,13 +393,16 @@ def _cmd_separate(args):
             if is_wav:
                 from scipy.io import wavfile
                 path = f"{args.out}_source{i}.wav"
-                wavfile.write(path, rate, y.astype(np.float32))
+                if _writer():
+                    wavfile.write(path, rate, y.astype(np.float32))
             else:
                 path = f"{args.out}_source{i}.npy"
-                np.save(path, y)
+                if _writer():
+                    np.save(path, y)
         else:
             path = f"{args.out}_source{i}.npy"
-            np.save(path, est[i])
+            if _writer():
+                np.save(path, est[i])
         stems.append(path)
     if not args.quiet:
         print(json.dumps({
@@ -411,16 +417,8 @@ def _cmd_separate(args):
     return 0
 
 
-MESH_SOLVERS = ("nmf", "nmf_hals", "encode")
-
-
 def _refusal(args):
-    """The error for a request this port cannot serve yet (sharded runs
-    of the solvers whose mesh= is not ported) or a device it cannot use;
-    None otherwise."""
-    if args.mesh and (args.solver not in MESH_SOLVERS or args.streaming):
-        what = "--streaming" if args.streaming else args.solver
-        return f"--mesh with {what} {NOT_PORTED}"
+    """The error for a device this port cannot use; None otherwise."""
     import torch
     try:
         device = torch.device(args.device)
@@ -467,8 +465,10 @@ def main(argv=None):
             return 2
     else:
         mesh = None
+    if not _writer():
+        args.quiet = True
     if args.solver == "separate":
-        return _cmd_separate(args)
+        return _cmd_separate(args, mesh)
     if (args.dicts is not None or args.solos is not None
             or args.ks is not None or args.phase_aware):
         print("error: --dicts/--solos/--ks/--phase-aware only apply to the "
@@ -483,8 +483,6 @@ def main(argv=None):
     def save_factors(path, res):
         if _writer():
             save_npz(path, res)
-    if not _writer():
-        args.quiet = True
 
     shape = tuple(int(x) for x in args.shape.split(",")) if args.shape else None
     if args.streaming:
@@ -860,7 +858,7 @@ def main(argv=None):
             res = nt.nmf_streaming(V, args.k, block_size=args.block_size,
                                    epochs=max(1, args.maxiter),
                                    tolerance=args.tolerance, seed=args.seed,
-                                   return_H=False, device=args.device)
+                                   return_H=False, device=args.device, mesh=mesh)
             save_factors(args.out, res)
         elif args.checkpoint_every:
             res = run_checkpointed(solver, V, *pos, total_iters=args.maxiter,

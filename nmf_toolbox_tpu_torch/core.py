@@ -188,17 +188,6 @@ def staging_device(V, device, mesh) -> torch.device:
     return V.device if torch.is_tensor(V) else torch.device("cpu")
 
 
-def reject_mesh(cfg) -> None:
-    """``mesh=`` (sharding over devices) is not ported to this solver yet:
-    the entry points whose mesh path is still to come raise rather than
-    run unsharded (``nmf``, ``nmf_hals`` and the batched engines take a
-    ``parallel.make_mesh`` mesh)."""
-    if cfg.get("mesh") is not None:
-        raise NotImplementedError(
-            "mesh= is not ported to nmf_toolbox_tpu_torch yet "
-            "(ROADMAP queue 1 item 12, multi-GPU)")
-
-
 def is_dtensor(x) -> bool:
     """True for a ``torch.distributed.tensor.DTensor``."""
     if not (torch.is_tensor(x) and torch.distributed.is_available()):

@@ -22,6 +22,12 @@ phase's positive gradient sum_t W0_t' (sum_s W_s H^(s))<-t is one
 (T*k, T*k) cross-Gram W0'W over m and one (T*k, T*k) @ (T*k, n) GEMM
 before the T shifts (ops/shift.py's layout); the non-sparse W branch's
 V H^(t)' for all t is one GEMM.
+
+Under a mesh (``parallel.placements_for("cnmfsc")``) the blocks, sums
+and projections are nmfsc's, and every shift takes its T - 1 columns of
+context from the neighbouring blocks (``parallel.collectives.halo``),
+a line search's candidates included; the non-sparse W branch sums each
+frame's V_hat Hs[t]' over samples.
 """
 from __future__ import annotations
 
@@ -29,28 +35,36 @@ import numpy as np
 import torch
 
 from ..core import (Result, as_tensor, common_scalars, full_f32_matmul,
-                    ingest_rescaled, merge_config, reject_mesh, resolve_device,
-                    resolve_dtype, uniform_init)
+                    ingest_rescaled, merge_config, resolve_device,
+                    resolve_dtype, staging_device, uniform_init)
 from ..ops import loop as looplib
 from ..ops.gram import conv_cross_grams_h, conv_cross_grams_w
 from ..ops.linesearch import host_scalar_type, make_search, resolve_width
 from ..ops.projection import hoyer_l1_target, project_rows
-from ..ops.shift import (conv_phi_ht, conv_reconstruct, conv_wt_phi,
-                         flatten_frames, shift_sum, stack_shifts_right)
+from ..ops.shift import (conv_reconstruct, conv_wt_phi, flatten_frames, phi_ht,
+                         shift_sum, stack_shifts_right)
+from ..parallel.collectives import gather_factor, sum_all, sum_features, sum_samples
+from ..parallel.mesh import apply_placements, check_mesh
+from ..parallel.padding import pad_axes, plan_padding
 from .nmfsc import MATRIX, gram_cost_w
 
 
-def _make_step(V, spec, search):
+def _make_step(V, spec, search, valid=None, mesh=None):
     """One cnmfsc iteration on the state (W0, W, H, step_w, step_h,
-    cost); ``step_w`` is a (T,) host array in V's dtype."""
+    cost); ``step_w`` is a (T,) host array in V's dtype.  ``valid``: the
+    true (m, n) of a mesh-padded V."""
     T, w_sparse, h_sparse, w_fixed, h_fixed, eps, l1_w, l1_h = spec
-    v_sq = torch.sum(V * V)
+    mv, nv = (None, None) if valid is None else valid
+    v_sq = sum_all(mesh, torch.sum(V * V))
+
+    def stack(H):
+        return stack_shifts_right(H, T, nv, mesh)
 
     def proj_rows(H):
-        return project_rows(H, l1_h, 1.0)[0]
+        return project_rows(H, l1_h, 1.0, nv, mesh, "n")[0]
 
     def proj_cols(W2d):
-        return project_rows(W2d.mT, l1_w, 1.0)[0].mT
+        return project_rows(W2d.mT, l1_w, 1.0, mv, mesh, "m")[0].mT
 
     def step(state, i):
         W0, W, H, step_w, step_h, prev_cost = state
@@ -60,22 +74,27 @@ def _make_step(V, spec, search):
         # V_hat entering this phase was reconstructed from the committed
         # W (cnmfsc.m:152/269; W differs from W0 only in iteration 1) ----
         if not h_fixed:
-            neg = conv_wt_phi(W0, V)  # sum_t W0_t' V<-t (cnmfsc.m:161-163)
-            Hs = stack_shifts_right(H, T).flatten(-3, -2)  # (T*k, n)
-            WX = flatten_frames(W0).T @ flatten_frames(W)  # [(t,k),(s,l)] = W0_t' W_s
-            pos = shift_sum((WX @ Hs).unflatten(-2, (T, -1)))
+            # sum_t W0_t' V<-t (cnmfsc.m:161-163), and [(t,k),(s,l)] = W0_t' W_s
+            grams = (conv_wt_phi(W0, V, mesh), flatten_frames(W0).T @ flatten_frames(W))
             if h_sparse:
-                WW0 = conv_cross_grams_w(W0)
-
+                neg, WX, WW0 = sum_features(mesh, *grams, conv_cross_grams_w(W0))
+            else:
+                neg, WX = sum_features(mesh, *grams)
+            Hs = stack(H).flatten(-3, -2)  # (T*k, n)
+            pos = shift_sum((WX @ Hs).unflatten(-2, (T, -1)), mesh)
+            if h_sparse:
                 def obj_h(Hn):
-                    sq = torch.sum(WW0 * conv_cross_grams_h(stack_shifts_right(Hn, T)),
-                                   dim=(-4, -3, -2, -1))
-                    return 0.5 * (v_sq - 2.0 * torch.sum(neg * Hn, dim=MATRIX) + sq)
+                    lin = torch.sum(neg * Hn, dim=MATRIX)
+                    HH = conv_cross_grams_h(stack(Hn))
+                    if mesh is not None:
+                        lin, HH = sum_samples(mesh, lin, HH)
+                    sq = torch.sum(WW0 * HH, dim=(-4, -3, -2, -1))
+                    return 0.5 * (v_sq - 2.0 * lin + sq)
                 H, step_h, term, _ = search(obj_h, H, pos - neg, step_h,
                                             proj_rows, prev_cost)
             else:
                 H = H * (neg / (pos + eps))  # (pos + eps)! cnmfsc.m:202
-                norms = torch.sqrt(torch.sum(H * H, dim=1))
+                norms = torch.sqrt(sum_samples(mesh, torch.sum(H * H, dim=1)))
                 H = H / norms[:, None]
                 W0 = W0 * norms[None, :, None]  # scales W0 only (cnmfsc.m:207-209)
 
@@ -83,16 +102,16 @@ def _make_step(V, spec, search):
         # reference returned before it) ----
         if not w_fixed and not term:
             W = W.clone()  # the frames are written one by one below
-            Hs = stack_shifts_right(H, T)
+            Hs = stack(H)
             if w_sparse:
                 step_w = step_w.copy()
-                HH = conv_cross_grams_h(Hs)        # HH[s, t] = Hs[s] Hs[t]'
-                VHt_all = conv_phi_ht(V, H, T)     # (m, k, T)
-                WW0 = conv_cross_grams_w(W0)
-                begobj = 0.5 * (v_sq - 2.0 * torch.sum(VHt_all * W0)
-                                + torch.sum(WW0 * HH))
+                HH, VHt_all = sum_samples(mesh, conv_cross_grams_h(Hs),  # HH[s, t] = Hs[s] Hs[t]'
+                                          phi_ht(V, Hs))                 # (m, k, T)
+                lin, WW0 = sum_features(mesh, torch.sum(VHt_all * W0),
+                                        conv_cross_grams_w(W0))
+                begobj = 0.5 * (v_sq - 2.0 * lin + torch.sum(WW0 * HH))
                 G00, VHt0 = HH[0, 0], VHt_all[:, :, 0]
-                obj_2d = lambda Wn: gram_cost_w(v_sq, VHt0, G00, Wn)  # noqa: E731
+                obj_2d = lambda Wn: gram_cost_w(v_sq, VHt0, G00, Wn, mesh)  # noqa: E731
 
                 Wprev = None
                 for t in range(T):
@@ -109,26 +128,28 @@ def _make_step(V, spec, search):
                     step_w[t] = st_new
                     Wprev = Wnew
             else:
-                V_hat = conv_reconstruct(W0, H)    # cnmfsc.m:215
-                negs = conv_phi_ht(V, H, T)        # V @ Hs[t]' for all t
+                V_hat = conv_reconstruct(W0, H, Hs=Hs)  # cnmfsc.m:215
+                negs = sum_samples(mesh, phi_ht(V, Hs))  # V @ Hs[t]' for all t
                 for t in range(T):
-                    Wt = W0[:, :, t] * (negs[:, :, t] / torch.clamp_min(V_hat @ Hs[t].T, eps))
+                    den = sum_samples(mesh, V_hat @ Hs[t].T)
+                    Wt = W0[:, :, t] * (negs[:, :, t] / torch.clamp_min(den, eps))
                     W[:, :, t] = Wt
                     V_hat = torch.clamp_min(V_hat + (Wt - W0[:, :, t]) @ Hs[t], 0.0)  # cnmfsc.m:262
 
         if term:  # no commit; the loop stops and trims this cost
             return (W0, W, H, step_w, step_h, prev_cost), prev_cost, True
         W0 = W  # commit the double buffer (cnmfsc.m:266)
-        c = conv_cost(V, W0, H)
+        c = conv_cost(V, W0, H, nv, mesh)
         return (W0, W, H, step_w, step_h, c), c, False
 
     return step
 
 
-def conv_cost(V, W, H):
-    """0.5||V - conv_reconstruct(W, H)||^2 in residual form (cnmfsc.m:269)."""
-    r = V - conv_reconstruct(W, H)
-    return 0.5 * torch.sum(r * r)
+def conv_cost(V, W, H, n_valid=None, mesh=None):
+    """0.5||V - conv_reconstruct(W, H)||^2 in residual form (cnmfsc.m:269);
+    ``mesh``: summed over every rank's block."""
+    r = V - conv_reconstruct(W, H, n_valid, mesh)
+    return sum_all(mesh, 0.5 * torch.sum(r * r))
 
 
 def cnmfsc(V, num_basis_elems: int, context_len: int,
@@ -142,14 +163,17 @@ def cnmfsc(V, num_basis_elems: int, context_len: int,
     earlier run, whose W and H come as the inits).  V must be
     non-negative; it is rescaled by its max (cnmfsc.m:68-73).  cost[0] is
     the initial cost.  Matmuls run in full f32 whatever the caller's TF32
-    settings.  W and H are tensors on the run's device; resume_state
-    holds a NumPy (T,) step_w and a float step_h.
+    settings.  ``mesh`` (``parallel.make_mesh``): every rank calls with
+    the same arguments and gets the whole W and H.  W and H are tensors
+    on the run's device; resume_state holds a NumPy (T,) step_w and a
+    float step_h.
     """
     cfg = merge_config(config, kwargs)
-    reject_mesh(cfg)
-    device = resolve_device(V, cfg.get("device"))
+    mesh = check_mesh(cfg.get("mesh"))
+    device = resolve_device(V, cfg.get("device"), mesh)
     dtype = resolve_dtype(V, cfg.get("dtype"))
-    V = ingest_rescaled(V, dtype, device)  # cnmfsc.m:68-73
+    src = staging_device(V, device, mesh)  # the whole arrays until placement
+    V = ingest_rescaled(V, dtype, src)  # cnmfsc.m:68-73
     m, n = V.shape
     k, T = int(num_basis_elems), int(context_len)
 
@@ -158,14 +182,14 @@ def cnmfsc(V, num_basis_elems: int, context_len: int,
     h_sp = min(float(cfg.get("H_sparsity", 0.0) or 0.0), 1.0)
 
     W0 = cfg.get("W_init")
-    W0 = (uniform_init(gen, (m, k, T), dtype, device, floor_eps=False) if W0 is None
-          else as_tensor(W0, dtype, device))  # cnmfsc.m:84-86
+    W0 = (uniform_init(gen, (m, k, T), dtype, src, floor_eps=False) if W0 is None
+          else as_tensor(W0, dtype, src))  # cnmfsc.m:84-86
     H0 = cfg.get("H_init")
     if H0 is None:
-        H0 = uniform_init(gen, (k, n), dtype, device, floor_eps=False)
+        H0 = uniform_init(gen, (k, n), dtype, src, floor_eps=False)
         H0 = H0 / torch.sqrt(torch.sum(H0 * H0, dim=1, keepdim=True))  # cnmfsc.m:89-92
     else:
-        H0 = as_tensor(H0, dtype, device)
+        H0 = as_tensor(H0, dtype, src)
 
     l1_w = hoyer_l1_target(m, w_sp) if w_sp > 0 else 0.0
     l1_h = hoyer_l1_target(n, h_sp) if h_sp > 0 else 0.0
@@ -191,11 +215,21 @@ def cnmfsc(V, num_basis_elems: int, context_len: int,
                 W_proj = project_rows(W0.reshape(m, k * T).T, l1_w, 1.0)[0].T.reshape(m, k, T)
             if h_sp > 0:
                 H0 = project_rows(H0, l1_h, 1.0)[0]
-        c0 = conv_cost(V, W_proj, H0)  # the initial cost uses W (cnmfsc.m:152)
-        out = looplib.run(_make_step(V, spec, search),
+        pad_m, pad_n, valid = plan_padding(mesh, m, n)
+        if valid is not None:
+            V = pad_axes(V, {0: pad_m, 1: pad_n})
+            W0 = pad_axes(W0, {0: pad_m})
+            W_proj = pad_axes(W_proj, {0: pad_m})
+            H0 = pad_axes(H0, {1: pad_n})
+        V, W0, W_proj, H0 = apply_placements(mesh, "cnmfsc", V=V, W=W0, W2=W_proj, H=H0)
+        nv = None if valid is None else n
+        c0 = conv_cost(V, W_proj, H0, nv, mesh)  # the initial cost uses W (cnmfsc.m:152)
+        out = looplib.run(_make_step(V, spec, search, valid, mesh),
                           (W0, W_proj, H0, step_w, step_h, c0), maxiter, tolerance,
                           offset=1, initial_cost=c0, cost_dtype=dtype)
     _, W, H, step_w, step_h, _ = out.state
+    W = gather_factor(mesh, W, "m", 0)[:m]
+    H = gather_factor(mesh, H, "n", 1)[:, :n]
     return Result(fields=("W", "H", "cost"), W=W, H=H,
                   cost=looplib.trim_cost(out, maxiter, offset=1),
                   n_iters=int(out.n_iters),

@@ -17,54 +17,76 @@ products keep the JAX package's association, so accept/halve decisions
 agree with it in f64.  The outer loop is ops/loop.run on the host; the
 line searches read one flag per trial, so an iteration's host reads are
 its trials, its projection groups and the stop rule.
+
+Under a mesh (``parallel.placements_for("nmfsc")``) V is zero-padded and
+sharded like nmf's; the Grams W'V, W'W sum over features and H H', V H'
+over samples; the Hoyer projections sum each vector over the axis it is
+sharded along (H's rows over samples, W's columns over features) with
+the true length as ``valid``; and every objective a search compares
+sums over every rank, so each rank accepts the same trial and reads the
+same flags.  The initial projections run on the whole factors before
+placement, as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import (Result, as_tensor, common_scalars, full_f32_matmul,
-                    ingest_rescaled, merge_config, reject_mesh, resolve_device,
-                    resolve_dtype, uniform_init)
+                    ingest_rescaled, merge_config, resolve_device,
+                    resolve_dtype, staging_device, uniform_init)
 from ..ops import loop as looplib
 from ..ops.linesearch import host_scalar_type, make_search, resolve_width
 from ..ops.normalize import row_l2_transfer
 from ..ops.projection import hoyer_l1_target, project_rows
+from ..parallel.collectives import gather_factor, sum_all, sum_features, sum_samples
+from ..parallel.mesh import apply_placements, check_mesh
+from ..parallel.padding import pad_axes, plan_padding
 
 MATRIX = (-2, -1)  # a candidate's factor: the objective sums over these
 
 
-def gram_cost(v_sq, WtV, WtW, H):
+def gram_cost(v_sq, WtV, WtW, H, mesh=None):
     """0.5||V - W H||^2 = 0.5(||V||^2 - 2<W'V, H> + <W'W H, H>) per
-    candidate H (..., k, n), in the JAX package's association."""
-    return 0.5 * (v_sq - 2.0 * torch.sum(WtV * H, dim=MATRIX)
-                  + torch.sum((WtW @ H) * H, dim=MATRIX))
+    candidate H (..., k, n), in the JAX package's association.  ``mesh``:
+    H holds this rank's columns (the Grams summed over features), and
+    both inner products sum over samples."""
+    lin, sq = torch.sum(WtV * H, dim=MATRIX), torch.sum((WtW @ H) * H, dim=MATRIX)
+    if mesh is not None:
+        lin, sq = sum_samples(mesh, lin, sq)
+    return 0.5 * (v_sq - 2.0 * lin + sq)
 
 
-def gram_cost_w(v_sq, VHt, HHt, W):
-    """The same objective for candidates W (..., m, k) with H frozen."""
-    return 0.5 * (v_sq - 2.0 * torch.sum(VHt * W, dim=MATRIX)
-                  + torch.sum((W.mT @ W) * HHt, dim=MATRIX))
+def gram_cost_w(v_sq, VHt, HHt, W, mesh=None):
+    """The same objective for candidates W (..., m, k) with H frozen;
+    ``mesh``: W holds this rank's rows, and <V H', W> and W'W sum over
+    features."""
+    lin, WtW = torch.sum(VHt * W, dim=MATRIX), W.mT @ W
+    if mesh is not None:
+        lin, WtW = sum_features(mesh, lin, WtW)
+    return 0.5 * (v_sq - 2.0 * lin + torch.sum(WtW * HHt, dim=MATRIX))
 
 
-def _make_step(V, spec, search):
+def _make_step(V, spec, search, valid=None, mesh=None):
     """``(step, cost)``: one iteration on the state (W, H, step_w,
     step_h, cost, W'V, W'W), and the clamped cost of (W, H) with the
     Grams it formed.  The Grams of the committed W ride the state into
     the next H update, which JAX forms anew: the same products, one
-    m-by-n GEMM fewer per iteration."""
+    m-by-n GEMM fewer per iteration.  ``valid``: the true (m, n) of a
+    mesh-padded V, the projections' vector lengths."""
     w_sparse, h_sparse, w_fixed, h_fixed, eps, l1_w, l1_h = spec
-    v_sq = torch.sum(V * V)
+    mv, nv = (None, None) if valid is None else valid
+    v_sq = sum_all(mesh, torch.sum(V * V))
 
     def proj_rows(H):
-        return project_rows(H, l1_h, 1.0)[0]
+        return project_rows(H, l1_h, 1.0, nv, mesh, "n")[0]
 
     def proj_cols(W):
-        return project_rows(W.mT, l1_w, 1.0)[0].mT
+        return project_rows(W.mT, l1_w, 1.0, mv, mesh, "m")[0].mT
 
     def cost(W, H):
         # clamp: see ops/gram.euclidean_cost_gram (nmfsc.m:237-238)
-        WtV, WtW = W.T @ V, W.T @ W
-        return torch.clamp_min(gram_cost(v_sq, WtV, WtW, H), 0.0), WtV, WtW
+        WtV, WtW = sum_features(mesh, W.T @ V, W.T @ W)
+        return torch.clamp_min(gram_cost(v_sq, WtV, WtW, H, mesh), 0.0), WtV, WtW
 
     def step(state, i):
         W, H, step_w, step_h, prev_cost, WtV, WtW = state
@@ -74,17 +96,17 @@ def _make_step(V, spec, search):
             if h_sparse:
                 dH = WtW @ H - WtV  # positive_grad - negative_grad
                 H, step_h, term, _ = search(
-                    lambda Hn: gram_cost(v_sq, WtV, WtW, Hn), H, dH, step_h,
+                    lambda Hn: gram_cost(v_sq, WtV, WtW, Hn, mesh), H, dH, step_h,
                     proj_rows, prev_cost)
             else:
                 H = H * (WtV / torch.clamp_min(WtW @ H, eps))
-                H, W = row_l2_transfer(H, W)
+                H, W = row_l2_transfer(H, W, mesh)
         # ---- W update (nmfsc.m:192-233); the reference returns from an H
         # underflow before reaching it (nmfsc.m:170-174) ----
         if not w_fixed and not term:
-            HHt, VHt = H @ H.T, V @ H.T
+            HHt, VHt = sum_samples(mesh, H @ H.T, V @ H.T)
             if w_sparse:
-                f_w = lambda Wn: gram_cost_w(v_sq, VHt, HHt, Wn)  # noqa: E731
+                f_w = lambda Wn: gram_cost_w(v_sq, VHt, HHt, Wn, mesh)  # noqa: E731
                 dW = W @ HHt - VHt
                 W, step_w, term, _ = search(f_w, W, dW, step_w, proj_cols,
                                             f_w(W))  # nmfsc.m:197, a fresh begobj
@@ -114,18 +136,22 @@ def nmfsc(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     ``dispatch`` None, "fused" and "phased" all run this solver (its
     outer loop already runs on the host); the phased dispatch's own keys
     are accepted and change nothing.  Matmuls run in full f32 whatever
-    the caller's TF32 settings, which come back on return.  W and H are
-    tensors on the run's device; resume_state holds floats.
+    the caller's TF32 settings, which come back on return.  ``mesh``
+    (``parallel.make_mesh``): every rank calls with the same arguments
+    and gets the whole W and H; ``linesearch_width`` "auto" stays 0 on a
+    mesh too.  W and H are tensors on the run's device; resume_state
+    holds floats.
     """
     cfg = merge_config(config, kwargs)
     dispatch = cfg.pop("dispatch", None)
     if dispatch not in (None, "fused", "phased"):
         raise ValueError(f"unknown dispatch {dispatch!r}; "
                          "use 'fused' (default) or 'phased'")
-    reject_mesh(cfg)
-    device = resolve_device(V, cfg.get("device"))
+    mesh = check_mesh(cfg.get("mesh"))
+    device = resolve_device(V, cfg.get("device"), mesh)
     dtype = resolve_dtype(V, cfg.get("dtype"))
-    V = ingest_rescaled(V, dtype, device)  # nmfsc.m:57-62
+    src = staging_device(V, device, mesh)  # the whole arrays until placement
+    V = ingest_rescaled(V, dtype, src)  # nmfsc.m:57-62
     m, n = V.shape
     k = int(num_basis_elems)
 
@@ -134,14 +160,14 @@ def nmfsc(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     h_sp = min(float(cfg.get("H_sparsity", 0.0) or 0.0), 1.0)
 
     W0 = cfg.get("W_init")
-    W0 = (uniform_init(gen, (m, k), dtype, device, floor_eps=False) if W0 is None
-          else as_tensor(W0, dtype, device))  # nmfsc.m:73-75
+    W0 = (uniform_init(gen, (m, k), dtype, src, floor_eps=False) if W0 is None
+          else as_tensor(W0, dtype, src))  # nmfsc.m:73-75
     H0 = cfg.get("H_init")
     if H0 is None:
-        H0 = uniform_init(gen, (k, n), dtype, device, floor_eps=False)
+        H0 = uniform_init(gen, (k, n), dtype, src, floor_eps=False)
         H0 = H0 / torch.sqrt(torch.sum(H0 * H0, dim=1, keepdim=True))  # nmfsc.m:78-81
     else:
-        H0 = as_tensor(H0, dtype, device)
+        H0 = as_tensor(H0, dtype, src)
 
     l1_w = hoyer_l1_target(m, w_sp) if w_sp > 0 else 0.0
     l1_h = hoyer_l1_target(n, h_sp) if h_sp > 0 else 0.0
@@ -162,11 +188,19 @@ def nmfsc(V, num_basis_elems: int, config: dict | None = None, **kwargs):
                 W0 = project_rows(W0.T, l1_w, 1.0)[0].T
             if h_sp > 0:  # nmfsc.m:106-109
                 H0 = project_rows(H0, l1_h, 1.0)[0]
-        step, cost = _make_step(V, spec, search)
+        pad_m, pad_n, valid = plan_padding(mesh, m, n)
+        if valid is not None:
+            V = pad_axes(V, {0: pad_m, 1: pad_n})
+            W0 = pad_axes(W0, {0: pad_m})
+            H0 = pad_axes(H0, {1: pad_n})
+        V, W0, H0 = apply_placements(mesh, "nmfsc", V=V, W=W0, H=H0)
+        step, cost = _make_step(V, spec, search, valid, mesh)
         c0, WtV, WtW = cost(W0, H0)
         out = looplib.run(step, (W0, H0, step_w, step_h, c0, WtV, WtW), maxiter,
                           tolerance, offset=1, initial_cost=c0, cost_dtype=dtype)
     W, H, step_w, step_h = out.state[:4]
+    W = gather_factor(mesh, W, "m", 0)[:m]
+    H = gather_factor(mesh, H, "n", 1)[:, :n]
     return Result(fields=("W", "H", "cost"), W=W, H=H,
                   cost=looplib.trim_cost(out, maxiter, offset=1),
                   n_iters=int(out.n_iters),

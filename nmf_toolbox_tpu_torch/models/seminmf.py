@@ -6,19 +6,31 @@ solve of the k-by-k Gram on the device; the sqrt multiplicative H update
 uses pos/neg Gram splits (seminmf.m:73-77, without an eps guard, as in
 the reference); the Euclidean cost comes from the Grams, so no m-by-n
 reconstruction is formed.
+
+Under a mesh (``parallel.placements_for("seminmf")``) H H' and V H' sum
+over samples before the k-by-k solve, which every rank then takes on
+the same Gram; W'V and W'W sum over features; the k-means init runs on
+the whole V before placement.  The pad columns of a padded problem have
+a 0/0 sqrt ratio, pinned to zero as in the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import (Result, as_tensor, common_scalars, merge_config,
-                    reject_mesh, resolve_device, resolve_dtype, uniform_init)
+                    resolve_device, resolve_dtype, staging_device, uniform_init)
 from ..ops import loop as looplib
 from ..ops.gram import euclidean_cost_gram, pos_neg_split, sq_norm
+from ..ops.masking import col_mask
+from ..parallel.collectives import gather_factor, sum_all, sum_features, sum_samples
+from ..parallel.mesh import apply_placements, block_offset, check_mesh
+from ..parallel.padding import pad_axes, plan_padding
 from ..utils.init import kmeans_indicator_h
 
 
-def _make_step(V, v_sq, w_fixed, h_fixed):
+def _make_step(V, v_sq, w_fixed, h_fixed, n_valid=None, mesh=None):
+    cmask = col_mask(V.shape[1], n_valid, V.device, block_offset(mesh, V.shape[1]))
+
     def step(carry, i):
         W, H = carry
         if not w_fixed:
@@ -27,17 +39,19 @@ def _make_step(V, v_sq, w_fixed, h_fixed):
             # semi-definite to roundoff, where a Cholesky solve gives NaN.
             # solve_ex does not check the factorization, so it never waits
             # on the device.
-            HHt = H @ H.T
-            VHt = V @ H.T
+            HHt, VHt = sum_samples(mesh, H @ H.T, V @ H.T)
             W = torch.linalg.solve_ex(HHt, VHt.T).result.T
-        WtV = W.T @ V
-        WtW = W.T @ W
+        WtV, WtW = sum_features(mesh, W.T @ V, W.T @ W)
         if not h_fixed:
             wv_pos, wv_neg = pos_neg_split(WtV)
             ww_pos, ww_neg = pos_neg_split(WtW)
             # seminmf.m:73-77 (no eps guard in the reference)
-            H = H * torch.sqrt((wv_pos + ww_neg @ H) / (wv_neg + ww_pos @ H))
-        return (W, H), euclidean_cost_gram(v_sq, WtV, WtW, H), False
+            ratio = (wv_pos + ww_neg @ H) / (wv_neg + ww_pos @ H)
+            if cmask is not None:
+                ratio = torch.where(cmask[None, :], ratio,
+                                    torch.zeros((), dtype=ratio.dtype, device=ratio.device))
+            H = H * torch.sqrt(ratio)
+        return (W, H), euclidean_cost_gram(v_sq, WtV, WtW, H, mesh=mesh), False
 
     return step
 
@@ -49,15 +63,16 @@ def seminmf(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     Parameters (seminmf.m:99-144): W_init (default uniform in [-1, 1]),
     H_init (default k-means indicator + 0.2), W_fixed, H_fixed, maxiter
     (100), tolerance (1e-3).  Extras: dtype, seed, device (where a NumPy
-    ``V`` goes; default the CUDA card).  ``mesh`` raises
-    ``NotImplementedError``.  W and H come back as tensors on the run's
-    device.
+    ``V`` goes; default the CUDA card), mesh (``parallel.make_mesh``:
+    every rank calls with the same arguments and gets the whole W and
+    H).  W and H come back as tensors on the run's device.
     """
     cfg = merge_config(config, kwargs)
-    reject_mesh(cfg)
-    device = resolve_device(V, cfg.get("device"))
+    mesh = check_mesh(cfg.get("mesh"))
+    device = resolve_device(V, cfg.get("device"), mesh)
     dtype = resolve_dtype(V, cfg.get("dtype"))
-    V = as_tensor(V, dtype, device)
+    src = staging_device(V, device, mesh)  # the whole arrays until placement
+    V = as_tensor(V, dtype, src)
     m, n = V.shape
     k = int(num_basis_elems)
     maxiter, tolerance, _, gen = common_scalars(cfg)
@@ -67,15 +82,24 @@ def seminmf(V, num_basis_elems: int, config: dict | None = None, **kwargs):
         H0 = kmeans_indicator_h(gen, V, k, dtype)  # seminmf.m:109-117
     W0 = cfg.get("W_init")
     if W0 is None:
-        W0 = 2.0 * uniform_init(gen, (m, k), dtype, device, floor_eps=False) - 1.0  # seminmf.m:121
-    W0 = as_tensor(W0, dtype, device)
-    H0 = as_tensor(H0, dtype, device)
+        W0 = 2.0 * uniform_init(gen, (m, k), dtype, src, floor_eps=False) - 1.0  # seminmf.m:121
+    W0 = as_tensor(W0, dtype, src)
+    H0 = as_tensor(H0, dtype, src)
+
+    pad_m, pad_n, valid = plan_padding(mesh, m, n)
+    if valid is not None:
+        V = pad_axes(V, {0: pad_m, 1: pad_n})
+        W0 = pad_axes(W0, {0: pad_m})
+        H0 = pad_axes(H0, {1: pad_n})
+    V, W0, H0 = apply_placements(mesh, "seminmf", V=V, W=W0, H=H0)
 
     with torch.no_grad():
-        step = _make_step(V, sq_norm(V), bool(cfg.get("W_fixed", False)),
-                          bool(cfg.get("H_fixed", False)))
+        step = _make_step(V, sum_all(mesh, sq_norm(V)), bool(cfg.get("W_fixed", False)),
+                          bool(cfg.get("H_fixed", False)),
+                          None if valid is None else n, mesh)
         out = looplib.run(step, (W0, H0), maxiter, tolerance, cost_dtype=dtype)
-    W, H = out.state
+    W = gather_factor(mesh, out.state[0], "m", 0)[:m]
+    H = gather_factor(mesh, out.state[1], "n", 1)[:, :n]
     return Result(fields=("W", "H", "cost"), W=W, H=H,
                   cost=looplib.trim_cost(out, maxiter),
                   n_iters=out.n_iters, converged=out.stopped)

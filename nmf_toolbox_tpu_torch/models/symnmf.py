@@ -13,26 +13,51 @@ are both the cost's inputs and the next update's, so they ride the
 loop's state.  The cost uses the Gram identity ||A - H H'||^2 = ||A||^2
 - 2 <A H, H> + ||H'H||^2, whose f32 cancellation floor is ~||A||^2
 eps_f32 (run f64 for a strictly monotone trace).
+
+Under a mesh (``parallel.placements_for("symnmf")``) n is zero-padded to
+a multiple of both mesh axes, A's rows and H's rows shard together over
+the feature axis and A's columns over the sample axis.  A H needs the
+rows of H that meet this rank's columns of A: H is gathered over the
+feature axis (k n values), multiplied locally and summed over samples;
+H'H sums over features.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..core import (Result, as_tensor, common_scalars, merge_config,
-                    reject_mesh, resolve_device, resolve_dtype, uniform_init)
+                    resolve_device, resolve_dtype, staging_device, uniform_init)
 from ..ops import loop as looplib
+from ..parallel.collectives import gather_factor, sum_all, sum_features, sum_samples
+from ..parallel.mesh import apply_placements, check_mesh
+from ..parallel.padding import mesh_multiples, pad_amount, pad_axes
 
 
-def _make_step(A, eps):
-    a_sq = torch.sum(A * A)
+def _products(A, H, mesh):
+    """(A H, H'H) for this rank's rows of H: A's column block meets the
+    rows of the whole H it covers, and the block products sum over
+    samples."""
+    if mesh is None:
+        return A @ H, H.T @ H
+    b = A.shape[1]
+    c0 = mesh.coord("n") * b
+    Hc = gather_factor(mesh, H, "m", 0)[c0:c0 + b]
+    AH = sum_samples(mesh, A @ Hc)
+    return AH, sum_features(mesh, H.T @ H)
+
+
+def _make_step(A, eps, mesh=None):
+    a_sq = sum_all(mesh, torch.sum(A * A))
 
     def step(carry, i):
         H, AH, G = carry
         H = H * (0.5 + 0.5 * (AH / torch.clamp_min(H @ G, eps)))
-        AH, G = A @ H, H.T @ H
+        AH, G = _products(A, H, mesh)
         # clamped as ops/gram.euclidean_cost_gram is
-        c = torch.clamp_min(0.5 * (a_sq - 2.0 * torch.sum(AH * H)
+        c = torch.clamp_min(0.5 * (a_sq - 2.0 * sum_features(mesh, torch.sum(AH * H))
                                    + torch.sum(G * G)), 0.0)
         return (H, AH, G), c, False
 
@@ -47,15 +72,17 @@ def symnmf(A, num_basis_elems: int, config: dict | None = None, **kwargs):
     that H H' starts at A's magnitude), maxiter (100), tolerance (1e-3),
     seed, dtype, eps, device (where a NumPy ``A`` goes; default the CUDA
     card).  A must be square, non-negative and symmetric (to 1e-5
-    relative; pass (A + A.T)/2 to symmetrize).  ``mesh`` raises
-    ``NotImplementedError``.  H comes back as a tensor on the run's
-    device; cluster assignments are ``torch.argmax(res.H, dim=1)``.
+    relative; pass (A + A.T)/2 to symmetrize), mesh
+    (``parallel.make_mesh``: every rank calls with the same arguments and
+    gets the whole H).  H comes back as a tensor on the run's device;
+    cluster assignments are ``torch.argmax(res.H, dim=1)``.
     """
     cfg = merge_config(config, kwargs)
-    reject_mesh(cfg)
-    device = resolve_device(A, cfg.get("device"))
+    mesh = check_mesh(cfg.get("mesh"))
+    device = resolve_device(A, cfg.get("device"), mesh)
     dtype = resolve_dtype(A, cfg.get("dtype"))
-    A = as_tensor(A, dtype, device)
+    src = staging_device(A, device, mesh)  # the whole arrays until placement
+    A = as_tensor(A, dtype, src)
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"symnmf expects a square similarity matrix; "
                          f"got {tuple(A.shape)}")
@@ -75,14 +102,23 @@ def symnmf(A, num_basis_elems: int, config: dict | None = None, **kwargs):
     if H0 is None:
         # A poorly scaled init stalls the damped update.
         scale = np.sqrt(max(float(torch.mean(A)), 1e-30) / k)
-        H0 = uniform_init(gen, (n, k), dtype, device) * (2.0 * scale)
-    H0 = as_tensor(H0, dtype, device)
+        H0 = uniform_init(gen, (n, k), dtype, src) * (2.0 * scale)
+    H0 = as_tensor(H0, dtype, src)
     if tuple(H0.shape) != (n, k):
         raise ValueError(f"H_init has shape {tuple(H0.shape)}, expected {(n, k)}")
 
+    # A stays square (A H contracts its columns against H's rows), so
+    # both axes pad by the least amount that every mesh axis divides; the
+    # zero rows of H stay zero and add nothing to A H, the Grams or the cost.
+    pad = pad_amount(n, math.lcm(*mesh_multiples(mesh)))
+    if pad:
+        A = pad_axes(A, {0: pad, 1: pad})
+        H0 = pad_axes(H0, {0: pad})
+    A, H0 = apply_placements(mesh, "symnmf", A=A, H=H0)
+
     with torch.no_grad():
-        out = looplib.run(_make_step(A, eps), (H0, A @ H0, H0.T @ H0),
+        out = looplib.run(_make_step(A, eps, mesh), (H0,) + _products(A, H0, mesh),
                           maxiter, tolerance, cost_dtype=dtype)
-    return Result(fields=("H", "cost"), H=out.state[0],
+    return Result(fields=("H", "cost"), H=gather_factor(mesh, out.state[0], "m", 0)[:n],
                   cost=looplib.trim_cost(out, maxiter),
                   n_iters=out.n_iters, converged=out.stopped)

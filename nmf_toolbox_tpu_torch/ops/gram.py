@@ -85,21 +85,29 @@ def conv_cross_grams_h(Hs):
     return torch.einsum("...tkn,...sln->...tskl", Hs, Hs)
 
 
-def conv_wt_vhat_gram(WW, H):
+def conv_wt_vhat_gram(WW, H, mesh=None, Hs=None):
     """conv_wt_phi(W, conv_reconstruct(W, H)) -> (..., k, n) from the
     cross-Grams WW = conv_cross_grams_w(W): sum_t shift_left(sum_s
     W_t' W_s Hs[s], t), with no m-by-n reconstruction.  Leading
-    dimensions of H are a batch of problems."""
-    Hs = stack_shifts_right(H, WW.shape[0])
-    return shift_sum(torch.einsum("tskl,...sln->...tkn", WW, Hs))
+    dimensions of H are a batch of problems.  ``Hs``: H's shift stack
+    when the caller has it; ``mesh``: H holds this rank's columns (WW
+    summed over features), and the left shifts read the next blocks."""
+    if Hs is None:
+        Hs = stack_shifts_right(H, WW.shape[0], mesh=mesh)
+    return shift_sum(torch.einsum("tskl,...sln->...tkn", WW, Hs), mesh)
 
 
-def conv_euclidean_cost_gram(v_sq, WtV, WW, H):
+def conv_euclidean_cost_gram(v_sq, WtV, WW, H, n_valid=None, mesh=None):
     """0.5*||V - conv_reconstruct(W, H)||^2 = 0.5*(||V||^2
     - 2<conv_wt_phi(W, V), H> + <WW, HH>), HH the cross-Grams of H's
     shift stack, clamped at zero as :func:`euclidean_cost_gram`.  Leading
-    dimensions of H (and of v_sq and WtV) are a batch: one cost each."""
-    HH = conv_cross_grams_h(stack_shifts_right(H, WW.shape[0]))
-    c = 0.5 * (v_sq - 2.0 * torch.sum(WtV * H, dim=(-2, -1))
-               + torch.sum(WW * HH, dim=(-4, -3, -2, -1)))
+    dimensions of H (and of v_sq and WtV) are a batch: one cost each.
+    ``mesh``: H and WtV hold this rank's columns (WtV and WW summed over
+    features, ``v_sq`` over every rank), and the sample-side sums run in
+    one collective; ``n_valid`` as in ``ops/shift.stack_shifts_right``."""
+    HH = conv_cross_grams_h(stack_shifts_right(H, WW.shape[0], n_valid, mesh))
+    lin = torch.sum(WtV * H, dim=(-2, -1))
+    if mesh is not None:
+        lin, HH = sum_samples(mesh, lin, HH)
+    c = 0.5 * (v_sq - 2.0 * lin + torch.sum(WW * HH, dim=(-4, -3, -2, -1)))
     return torch.clamp_min(c, 0.0)

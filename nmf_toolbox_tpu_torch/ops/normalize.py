@@ -7,7 +7,7 @@ import math
 
 import torch
 
-from ..parallel.collectives import sum_features
+from ..parallel.collectives import sum_axis, sum_features, sum_samples
 
 
 def _col_sq(W, mesh):
@@ -38,16 +38,19 @@ def unit_l2_columns_entry(W, mesh=None):
     return torch.where(torch.abs(sq - 1) <= tol, W, W / torch.sqrt(sq))
 
 
-def unit_sum_columns(X):
-    """X * diag(1/sum(x_k)) — lnmf.m:64,75; convexnmf.m:83,95; chnmf.m:115,181."""
-    return X / torch.sum(X, dim=0, keepdim=True)
+def unit_sum_columns(X, mesh=None, axis="m"):
+    """X * diag(1/sum(x_k)) — lnmf.m:64,75; convexnmf.m:83,95; chnmf.m:115,181.
+    ``mesh``: X holds this rank's rows, which lie along the mesh axis
+    ``axis``, and the sums run over every rank's."""
+    return X / sum_axis(mesh, axis, torch.sum(X, dim=0, keepdim=True))
 
 
-def row_l2_transfer(H, W):
+def row_l2_transfer(H, W, mesh=None):
     """Normalize rows of H to unit L2, pushing the norms into W's columns
     (nmfsc.m:184-187; cnmfsc.m:204-209 for a (m, k, T) basis tensor).
-    Returns (H_normalized, W_scaled)."""
-    norms = torch.sqrt(torch.sum(H * H, dim=1))  # (k,)
+    Returns (H_normalized, W_scaled).  ``mesh``: H holds this rank's
+    columns, and the norms run over every rank's."""
+    norms = torch.sqrt(sum_samples(mesh, torch.sum(H * H, dim=1)))  # (k,)
     H = H / norms[:, None]
     if W.ndim == 2:
         W = W * norms[None, :]
@@ -57,16 +60,17 @@ def row_l2_transfer(H, W):
 
 
 def cross_frame_norm(W, H=None, context_len: int | None = None,
-                     return_norms: bool = False):
+                     return_norms: bool = False, mesh=None):
     """Per-basis-element cross-frame normalization for the convolutive basis.
 
     w_norm_k = ||W[:, k, :]||_F / T; W[:, k, :] /= w_norm_k, and (at init
     only) H[k, :] *= w_norm_k.  Reference: cnmf.m:157-166, 196-199.
     Returns (W, H) (H unchanged if None), or (W, norms) with
-    ``return_norms``.
+    ``return_norms``.  ``mesh``: W holds this rank's rows, and the norms
+    run over every rank's.
     """
     T = context_len if context_len is not None else W.shape[2]
-    norms = torch.sqrt(torch.sum(W * W, dim=(0, 2))) / T  # (k,)
+    norms = torch.sqrt(sum_features(mesh, torch.sum(W * W, dim=(0, 2)))) / T  # (k,)
     W = W / norms[None, :, None]
     if return_norms:
         return W, norms

@@ -24,11 +24,13 @@ import math
 import torch
 
 from ..core import as_tensor, host_read, resolve_device, resolve_dtype
+from ..parallel.collectives import sum_axis
+from ..parallel.mesh import block_offset
 
 PASSES_PER_READ = 4  # projection passes between two reads of "all done"
 
 
-def project_rows(S, k1, k2, valid: int | None = None):
+def project_rows(S, k1, k2, valid: int | None = None, mesh=None, axis=None):
     """Project every vector S[..., :] (length N, the last axis) onto
     {sum = k1, sum of squares = k2, >= 0}.
 
@@ -37,24 +39,37 @@ def project_rows(S, k1, k2, valid: int | None = None):
     ``usediters``, int32).  ``valid`` handles padded vectors: only the
     first ``valid`` entries form the true vector; the pad enters the
     loop pre-zeroed, so every sum divides by the true length.
+
+    ``mesh``: the vectors' last axis is sharded over the mesh axis
+    ``axis`` and S holds this rank's entries; every per-vector sum (the
+    L1 and L2 sums, the count of zeroed entries, the midpoint's norm, the
+    count of negative entries) goes through that axis' sum, ``valid``
+    counts global entries, and every rank reads the same "all done".
     """
-    N = S.shape[-1]
+    n_loc = S.shape[-1]
+    N = n_loc * (1 if mesh is None else mesh.size(axis))
+    offset = block_offset(mesh, n_loc, axis)
     dt, dev = S.dtype, S.device
     batch = S.shape[:-1]
     k1 = torch.as_tensor(k1, dtype=dt, device=dev).expand(batch)
     k2 = torch.as_tensor(k2, dtype=dt, device=dev).expand(batch)
     zero_t = torch.zeros((), dtype=dt, device=dev)
 
+    def total(*xs):  # per-vector sums over every rank's entries
+        return sum_axis(mesh, axis, *xs)
+
     if valid is None or valid >= N:
         # Initial projection onto the sum hyperplane (projfunc.m:22).
-        v = S + ((k1 - torch.sum(S, dim=-1)) / N)[..., None]
+        v = S + ((k1 - total(torch.sum(S, dim=-1))) / N)[..., None]
         zero = torch.zeros(S.shape, dtype=torch.bool, device=dev)
+        nz = torch.zeros(batch, dtype=dt, device=dev)
     else:
-        pad = torch.arange(N, device=dev) >= valid
+        pad = torch.arange(offset, offset + n_loc, device=dev) >= valid
         Sm = torch.where(pad, zero_t, S)
         v = torch.where(pad, zero_t,
-                        Sm + ((k1 - torch.sum(Sm, dim=-1)) / valid)[..., None])
+                        Sm + ((k1 - total(torch.sum(Sm, dim=-1))) / valid)[..., None])
         zero = pad.expand(S.shape)
+        nz = torch.full(batch, float(N - valid), dtype=dt, device=dev)
     done = torch.zeros(batch, dtype=torch.bool, device=dev)
     iters = torch.zeros(batch, dtype=torch.int32, device=dev)
 
@@ -62,16 +77,18 @@ def project_rows(S, k1, k2, valid: int | None = None):
     j = 0
     while j < N + 1:
         for _ in range(min(group, N + 1 - j)):
-            v, zero, done, iters = _pass(v, zero, done, iters, k1, k2, N, zero_t)
+            v, zero, nz, done, iters = _pass(v, zero, nz, done, iters, k1, k2, N,
+                                             zero_t, total)
         j += group
         if host_read(torch.all(done)):
             break
     return v, iters
 
 
-def _pass(v, zero, done, iters, k1, k2, N, zero_t):
-    """One projection pass (projfunc.m:28-55); frozen vectors unchanged."""
-    nz = torch.sum(zero, dim=-1)
+def _pass(v, zero, nz, done, iters, k1, k2, N, zero_t, total):
+    """One projection pass (projfunc.m:28-55); frozen vectors unchanged.
+    ``nz`` counts each vector's zeroed entries; ``total`` sums per vector
+    over every rank's entries, in two collectives per pass under a mesh."""
     # Projection to the L2 sphere along the hyperplane (projfunc.m:31-38):
     # v + alpha w with ||v + alpha w||^2 = k2, w = v - midpoint.  With
     # v = midpoint + w, b = 2(a + s) and c = a + 2s + ||midpoint||^2 - k2
@@ -84,28 +101,32 @@ def _pass(v, zero, done, iters, k1, k2, N, zero_t):
     # real(sqrt(negative)) = 0) without the cancellation.
     midpoint = torch.where(zero, zero_t, (k1 / (N - nz))[..., None])
     w = v - midpoint
-    a = torch.sum(w * w, dim=-1)
-    s = torch.sum(w * midpoint, dim=-1)
-    q = k2 - torch.sum(midpoint * midpoint, dim=-1)
+    a, s, mm = total(torch.sum(w * w, dim=-1), torch.sum(w * midpoint, dim=-1),
+                     torch.sum(midpoint * midpoint, dim=-1))
+    q = k2 - mm
     disc = torch.clamp_min(s * s + a * q, 0.0)
     beta = (-s + torch.sqrt(disc)) / a
     v_proj = beta[..., None] * w + midpoint
 
-    ok = torch.all(v_proj >= 0, dim=-1)  # projfunc.m:40-44
-
     # Zero-clamp and redistribute for the still-negative vectors
-    # (projfunc.m:49-53).
+    # (projfunc.m:49-53); a vector is done when none of its entries is
+    # negative (projfunc.m:40-44).
     zero_new = zero | (v_proj <= 0)
-    nz2 = torch.sum(zero_new, dim=-1)
     v_cl = torch.where(zero_new, zero_t, v_proj)
-    v_re = v_cl + ((k1 - torch.sum(v_cl, dim=-1)) / (N - nz2))[..., None]
+    n_neg, nz2, s_cl = total(torch.sum(~(v_proj >= 0), dim=-1, dtype=v.dtype),
+                             torch.sum(zero_new, dim=-1, dtype=v.dtype),
+                             torch.sum(v_cl, dim=-1))
+    ok = n_neg == 0
+    v_re = v_cl + ((k1 - s_cl) / (N - nz2))[..., None]
     v_re = torch.where(zero_new, zero_t, v_re)
 
+    keep = done | ok
     v_next = torch.where(done[..., None], v,
                          torch.where(ok[..., None], v_proj, v_re))
-    zero_next = torch.where((done | ok)[..., None], zero, zero_new)
+    zero_next = torch.where(keep[..., None], zero, zero_new)
+    nz_next = torch.where(keep, nz, nz2)
     iters_next = torch.where(done, iters, iters + 1)
-    return v_next, zero_next, done | ok, iters_next
+    return v_next, zero_next, nz_next, keep, iters_next
 
 
 def project_columns(S, k1, k2, valid: int | None = None):

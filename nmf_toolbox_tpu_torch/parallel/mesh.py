@@ -140,6 +140,12 @@ def make_mesh(n_devices: int | None = None, *, shape=None,
                                       device_type, ranks, mesh_dim_names=names))
 
 
+def block_offset(mesh, size: int, axis: str = SAMPLE_AXIS) -> int:
+    """The first global index of this rank's block of ``size`` along the
+    mesh axis ``axis`` (0 with no mesh): where a block's masks start."""
+    return 0 if mesh is None else mesh.coord(axis) * size
+
+
 def _axes(mesh: Mesh):
     names = mesh.axis_names
     m_ax = FEATURE_AXIS if FEATURE_AXIS in names else None

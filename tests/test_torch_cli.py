@@ -30,7 +30,6 @@ from nmf_toolbox_tpu_torch.utils.checkpoint import load_factors, save_factors  #
 
 REPO = str(pathlib.Path(__file__).resolve().parents[1])
 RTOL = 1e-9
-ITEM_12 = "ROADMAP queue 1 item 12"
 
 
 class Run:
@@ -170,22 +169,28 @@ def test_cli_checkpointed_rerun_and_totals(matrix_file, tmp_path, run_cli):
 
 def test_cli_mesh(matrix_file, tmp_path, run_cli):
     """--mesh runs in a process group (a one-rank one here; torchrun's
-    are tests/test_torch_distributed.py's), bit-identical to no mesh.
-    Through python -m without torchrun it is refused cleanly; --mesh with
-    a solver whose mesh= is not ported, too."""
+    are tests/test_torch_distributed.py's), bit-identical to no mesh,
+    for nmf and for lnmf, whose mesh= this port once refused.  Through
+    python -m without torchrun it is refused cleanly; encode --streaming
+    --mesh too, as the JAX CLI refuses it."""
     from torch_mesh import one_rank
-    args = ["nmf", matrix_file, "--k", "4", "--maxiter", "5"]
-    summary(run_cli(args + ["--out", str(tmp_path / "s.npz")]))
-    with one_rank():
-        s = summary(run_cli(args + ["--mesh", "1", "--out", str(tmp_path / "m.npz")]))
-    assert s["iterations"] == 5
-    a, b = load_factors(tmp_path / "s.npz"), load_factors(tmp_path / "m.npz")
-    np.testing.assert_array_equal(a["W_init"], b["W_init"])
+    for solver in ("nmf", "lnmf"):
+        args = [solver, matrix_file, "--k", "4", "--maxiter", "5"]
+        summary(run_cli(args + ["--out", str(tmp_path / "s.npz")]))
+        with one_rank():
+            s = summary(run_cli(args + ["--mesh", "1", "--out", str(tmp_path / "m.npz")]))
+        assert s["iterations"] == 5 and s["solver"] == solver
+        a, b = load_factors(tmp_path / "s.npz"), load_factors(tmp_path / "m.npz")
+        for key in ("W_init", "H_init"):
+            np.testing.assert_array_equal(a[key], b[key])
     r = run_module(args + ["--mesh", "8", "--out", str(tmp_path / "x.npz"),
                            "--device", "cpu"])
     refused(r, "torchrun")
-    refused(run_cli(["lnmf", matrix_file, "--k", "4", "--mesh", "2",
-                     "--out", str(tmp_path / "x.npz")]), "--mesh", ITEM_12)
+    w = str(tmp_path / "W.npy")
+    np.save(w, np.ones((30, 2), np.float32))
+    with one_rank():
+        refused(run_cli(["encode", matrix_file, "--dict", w, "--streaming", "--mesh", "1",
+                         "--out", str(tmp_path / "x.npz")]), "single-device")
     assert not (tmp_path / "x.npz").exists()
 
 

@@ -130,7 +130,7 @@ def test_cmfwisa_dtypes_and_sources():
     r = tt.cmfwisa(np.abs(V), [2, 2], maxiter=5, **CPU)  # real f64 V -> complex128
     assert isinstance(r.P, list) and r.P[0].dtype == torch.complex128
     assert [w.shape for w in r.W] == [(12, 2), (12, 2)]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_mesh"):  # a foreign mesh
         tt.cmfwisa(V, 3, mesh=object(), **CPU)
 
 

@@ -147,8 +147,10 @@ def test_validation_as_jax(case):
 
 
 def test_mesh_not_ported():
+    """mesh= is ported (tests/test_torch_parallel_solvers.py); a mesh
+    that is not a parallel.make_mesh one raises TypeError."""
     V, labels, *_ = problem(7)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.constrainednmf(V, labels, K, maxiter=2, mesh=object(), **CPU)
 
 

@@ -547,7 +547,9 @@ SOLVERS = {
 
 @pytest.mark.parametrize("name", sorted(SOLVERS))
 def test_mesh_not_ported(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    """mesh= is ported (tests/test_torch_parallel_solvers.py); a mesh
+    that is not a parallel.make_mesh one raises TypeError."""
+    with pytest.raises(TypeError, match="make_mesh"):
         SOLVERS[name](data(15)[0], mesh=object(), **CPU)
 
 

@@ -297,8 +297,10 @@ SOLVERS = ("lnmf", "seminmf", "convexnmf", "chnmf")
 
 @pytest.mark.parametrize("name", SOLVERS)
 def test_mesh_not_ported(name):
+    """mesh= is ported (tests/test_torch_parallel_solvers.py); a mesh
+    that is not a parallel.make_mesh one raises TypeError."""
     V, *_ = data(9)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    with pytest.raises(TypeError, match="make_mesh"):
         getattr(tt, name)(V, K, maxiter=2, mesh=object(), **CPU)
 
 

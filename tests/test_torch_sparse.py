@@ -215,8 +215,10 @@ def test_negative_v_raises(solver):
 
 
 def test_mesh_raises():
+    """mesh= is ported (tests/test_torch_parallel_solvers.py); a mesh
+    that is not a parallel.make_mesh one raises TypeError."""
     V, _, _ = nmfsc_problem()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.nmfsc(V, 4, mesh=object(), **CPU)
 
 
@@ -269,7 +271,7 @@ def test_tf32_settings_forced_off_and_restored(solver, monkeypatch):
         call(H_sparsity=0.5, maxiter=3, dtype=np.float32, **CPU)
         assert seen and set(seen) == {"ieee"}
         assert mm.fp32_precision == "tf32"
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="make_mesh"):  # a foreign mesh
             call(maxiter=3, mesh=object(), **CPU)
         monkeypatch.setattr(importlib.import_module(f"nmf_toolbox_tpu_torch.models.{solver}"),
                             "project_rows", _raise)  # the initial projection, inside the solve

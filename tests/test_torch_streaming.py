@@ -171,7 +171,9 @@ def test_encode_streaming_errors_as_jax(case):
 
 
 def test_streaming_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    """nmf_streaming's mesh= is ported (tests/test_torch_parallel_solvers.py);
+    a mesh that is not a parallel.make_mesh one raises TypeError."""
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.nmf_streaming(lowrank(15), K, mesh=object(), **CPU)
 
 

@@ -105,7 +105,9 @@ def test_validation_as_jax(match):
 
 
 def test_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
+    """mesh= is ported (tests/test_torch_parallel_solvers.py); a mesh
+    that is not a parallel.make_mesh one raises TypeError."""
+    with pytest.raises(TypeError, match="make_mesh"):
         tt.symnmf(np.eye(4), 2, mesh=object(), **CPU)
 
 

@@ -156,6 +156,58 @@ def call(fn, *args, mesh=None, fields=("W", "H", "cost"), **kwargs):
     return result_fields(f(*args, **kwargs), fields)
 
 
+def call_counted(fn, *args, **kwargs):
+    """Rank side: :func:`call`, with the host reads the call made
+    (``core.host_reads``: line-search trials, projection groups, stop
+    rule)."""
+    from nmf_toolbox_tpu_torch import core
+    before = core.host_reads
+    out = call(fn, *args, **kwargs)
+    out["host_reads"] = core.host_reads - before
+    return out
+
+
+def streaming(V, k, draws, mesh, **kwargs):
+    """Rank side: ``nmf_streaming`` on the mesh, its block inits the
+    arrays ``draws`` in order (as the JAX package's are patched to)."""
+    import importlib
+    import torch
+    mod = importlib.import_module("nmf_toolbox_tpu_torch.models.streaming")
+    it = iter(draws)
+    orig = mod.uniform_init
+    mod.uniform_init = lambda *a, **kw: torch.from_numpy(next(it))
+    try:
+        return call("nmf_toolbox_tpu_torch.nmf_streaming", V, k, mesh=mesh, **kwargs)
+    finally:
+        mod.uniform_init = orig
+
+
+def sample_block(x, mesh):
+    """This rank's block of x's last axis, sharded over the sample axis."""
+    import torch
+    b = x.shape[-1] // mesh.size("n")
+    c = mesh.coord("n")
+    return torch.from_numpy(np.ascontiguousarray(x[..., c * b:(c + 1) * b]))
+
+
+def halos(x, width, kind):
+    """Rank side: the left and right halos of width ``width`` of this
+    rank's block of x."""
+    from nmf_toolbox_tpu_torch.parallel.collectives import halo
+    mesh = mesh_of(kind)
+    blk = sample_block(x, mesh)
+    return halo(mesh, blk, width, "left").numpy(), halo(mesh, blk, width, "right").numpy()
+
+
+def shift_ops(H, Y, T, n_valid, kind):
+    """Rank side: ``stack_shifts_right`` of this rank's block of H and
+    ``shift_sum`` of its block of Y (..., T, k, n), on the mesh."""
+    from nmf_toolbox_tpu_torch.ops.shift import shift_sum, stack_shifts_right
+    mesh = mesh_of(kind)
+    return (stack_shifts_right(sample_block(H, mesh), T, n_valid, mesh).numpy(),
+            shift_sum(sample_block(Y, mesh), mesh).numpy())
+
+
 def consensus(V, mesh, **kwargs):
     """Rank side: ``consensus_stability`` on the mesh; its recommendation
     and per-rank (consensus, cophenetic, mean cost)."""
