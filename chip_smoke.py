@@ -209,7 +209,11 @@ without printing the last line:
    513x5000 r32, and one epoch of ``nmf_streaming`` of phase 7's V from
    a host copy: each bit-identical (every field) to the same call with
    no mesh, with ms per iteration of both and collectives per
-   iteration.  Then two Gloo ranks spawned by the script sharing the
+   iteration.  From a host copy of phase 7's V, as the CLI passes it:
+   ``convexnmf`` and ``chnmf`` with their default inits bit-identical to
+   no mesh, the k-means and the hull search reading V on the card, and
+   ``convexnmf`` with phase 12's inits (its rows of V'V built from the
+   host V in column chunks) within 1e-4 of no mesh.  Then two Gloo ranks spawned by the script sharing the
    card (``make_mesh(2)``): cnmf gram, nmf2d KL, chcnmf and cnmfsc at
    those shapes (the T - 1 columns of context cross the split),
    ``nmfsc`` with both factors sparse and ``constrainednmf`` KL on
@@ -2698,6 +2702,62 @@ def factors(torch, res):
     return out
 
 
+def host_v_runs(torch, x, V_host, mesh):
+    """Phase 17's one NCCL rank from a host V, as the CLI passes one:
+    convexnmf and chnmf with their default inits, bit-identical to no
+    mesh, with the k-means and the hull search reading V on the card;
+    and convexnmf with injected inits, whose rows of V'V the mesh run
+    forms from the host V in column chunks (convexnmf.row_gram), held
+    within MESH_RTOL of no mesh (the chunks' products may sum in
+    another order than the whole product's)."""
+    import importlib
+    import nmf_toolbox_tpu_torch as tt
+    m, n, k = GRAM
+    seen, patched = [], []
+    for mod, fn in (("convexnmf", "kmeans_indicator_h"), ("chnmf", "convex_hull_anchors")):
+        module = importlib.import_module(f"nmf_toolbox_tpu_torch.models.{mod}")
+        orig = getattr(module, fn)
+
+        def spy(*args, orig=orig, fn=fn, **kwargs):
+            seen.append((fn, next(a for a in args if torch.is_tensor(a)).device.type))
+            return orig(*args, **kwargs)
+        setattr(module, fn, spy)
+        patched.append((module, fn, orig))
+    one = dict(maxiter=MESH_RANK_ITERS, tolerance=NEVER, seed=3)
+    runs = {
+        f"convexnmf {m}x{n} r{k} default inits (k-means)":
+            lambda msh: tt.convexnmf(V_host, k, mesh=msh, **one),
+        f"chnmf {m}x{n} r{k} default inits (hull)":
+            lambda msh: tt.chnmf(V_host, k, mesh=msh, **one),
+        f"convexnmf {m}x{n} r{k} injected inits (chunked row Gram)":
+            lambda msh: tt.convexnmf(V_host, k, G_init=x["ini"]["G"], H_init=x["ini"]["H"],
+                                     mesh=msh, **one),
+    }
+    out = {}
+    try:
+        for name, run in runs.items():
+            del seen[:]
+            a, ms_a = wall_ms(torch, lambda: run(None))
+            b, ms_b = wall_ms(torch, lambda: run(mesh))
+            same = result_equal(torch, a, b)
+            gap = {f: max_rel(getattr(b, f), getattr(a, f)) for f in ("W", "H")}
+            gap["cost"] = float(np.max(np.abs(np.asarray(b.cost) / np.asarray(a.cost) - 1)))
+            row = {"bit_identical": same, "vs_no_mesh": gap, "init_devices": sorted(set(seen)),
+                   "s_no_mesh": ms_a / 1e3, "s_mesh": ms_b / 1e3}
+            out[name] = row
+            say(f"phase 17 one NCCL rank from a host V, {name}: {json.dumps(row)}")
+            if "default" in name and not (same and seen and
+                                          all(dev == "cuda" for _, dev in seen)):
+                raise AssertionError(f"phase 17 {name}: not bit-identical to no mesh, or "
+                                     f"the init read V off the card: {row}")
+            if not max(gap.values()) <= MESH_RTOL or a.n_iters != b.n_iters:
+                raise AssertionError(f"phase 17 {name}: {gap} from no mesh, beyond {MESH_RTOL}")
+    finally:
+        for module, fn, orig in patched:
+            setattr(module, fn, orig)
+    return out
+
+
 def phase17_mesh_solvers(torch, fk, V_gram):
     """mesh= for the solvers this slice ports: one NCCL rank bit-identical
     to no mesh at the shapes of phases 12-14 (timed in turns), two Gloo
@@ -2744,6 +2804,7 @@ def phase17_mesh_solvers(torch, fk, V_gram):
                 f"{row['ms_per_iter_mesh']:.3f} ms/iter against {row['ms_per_iter_no_mesh']:.3f} "
                 f"without (two calls of {a.n_iters} iterations each, in turns, one-time work "
                 f"included); {row['collectives_per_iter']:g} collectives per iteration")
+        summary["one_rank_nccl_host_v"] = host_v_runs(torch, x, V_host, mesh)
         dist.destroy_process_group()
         del plain, meshed, x, V_host
         torch.cuda.empty_cache()

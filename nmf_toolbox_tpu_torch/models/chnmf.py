@@ -100,6 +100,10 @@ def chnmf(V, num_basis_elems: int, config: dict | None = None, **kwargs):
 
     S = cfg.get("S_init")
     if S is None:
+        # The hull search reads the whole V on the run's device, so under
+        # a mesh too the whole arrays stay there and placement cuts them.
+        src = device
+        V = V.to(src)
         S = convex_hull_anchors(V, pct, int(cfg.get("max_eigvecs", 16)),
                                 int(cfg.get("seed", 0)))
     S = as_tensor(S, dtype, src)

@@ -45,7 +45,6 @@ def label_maps(class_onehot, n_u, c0, b):
     n_u) class indicator of the labeled columns, zero on pad columns."""
     u1 = min(max(n_u - c0, 0), b)                  # this block's unlabeled columns
     onehot = class_onehot[:, max(c0 - n_u, 0):max(c0 + b - n_u, 0)]  # its labeled ones
-    whole = c0 == 0 and u1 == n_u  # the block holds every unlabeled column
 
     def apply_A(Z):
         """H = Z A: the unlabeled block passes through; a labeled sample
@@ -54,13 +53,10 @@ def label_maps(class_onehot, n_u, c0, b):
 
     def apply_At(X):
         """X A': the unlabeled columns, then per-class sums of the labeled."""
-        lab = X[:, u1:] @ onehot.T
-        if whole:
-            return torch.cat([X[:, :u1], lab], dim=1)
         out = torch.zeros((X.shape[0], n_u + onehot.shape[0]), dtype=X.dtype,
                           device=X.device)
         out[:, c0:c0 + u1] = X[:, :u1]
-        out[:, n_u:] = lab
+        out[:, n_u:] = X[:, u1:] @ onehot.T
         return out
 
     return apply_A, apply_At

@@ -48,6 +48,9 @@ def row_gram(V, r0: int, r1: int, device):
     """Rows r0 .. r1 of V'V, (r1 - r0, n) on ``device``, from the whole V:
     V[:, r0:r1]' V, with V's columns moved in chunks when V lies
     elsewhere."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:  # "cuda" names the current card
+        device = torch.device("cuda", torch.cuda.current_device())
     if V.device == device:
         return V[:, r0:r1].T @ V
     m, n = V.shape
@@ -161,6 +164,10 @@ def convexnmf(V, num_basis_elems: int, config: dict | None = None, **kwargs):
             "(the reference's default at convexnmf.m:69-71 references "
             "undefined variables and errors)")
     if H0 is None or G0 is None:
+        # The k-means reads the whole V on the run's device, so under a
+        # mesh too the whole arrays stay there and placement cuts them.
+        src = device
+        V = V.to(src)
         Hk = kmeans_indicator_h(gen, V, k, dtype)  # indicator + 0.2
         if H0 is None:
             H0 = Hk
@@ -170,7 +177,8 @@ def convexnmf(V, num_basis_elems: int, config: dict | None = None, **kwargs):
             # update) over the un-offset cluster sizes.
             ind = Hk - 0.2
             G0 = Hk.T / torch.clamp_min(torch.sum(ind, dim=1)[None, :], 1.0)
-    G0 = unit_sum_columns(as_tensor(G0, dtype, src))  # convexnmf.m:83
+    # convexnmf.m:83; row-major, as placement makes it (the k-means G0 is a transpose)
+    G0 = unit_sum_columns(as_tensor(G0, dtype, src)).contiguous()
     H0 = as_tensor(H0, dtype, src)
 
     pad_m, pad_n, valid = plan_padding(mesh, m, n)

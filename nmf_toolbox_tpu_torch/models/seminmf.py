@@ -79,6 +79,10 @@ def seminmf(V, num_basis_elems: int, config: dict | None = None, **kwargs):
 
     H0 = cfg.get("H_init")
     if H0 is None:
+        # The k-means reads the whole V on the run's device, so under a
+        # mesh too the whole arrays stay there and placement cuts them.
+        src = device
+        V = V.to(src)
         H0 = kmeans_indicator_h(gen, V, k, dtype)  # seminmf.m:109-117
     W0 = cfg.get("W_init")
     if W0 is None:

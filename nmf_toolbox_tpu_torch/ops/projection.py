@@ -46,6 +46,8 @@ def project_rows(S, k1, k2, valid: int | None = None, mesh=None, axis=None):
     count of negative entries) goes through that axis' sum, ``valid``
     counts global entries, and every rank reads the same "all done".
     """
+    if mesh is not None and axis is None:
+        raise ValueError("project_rows: a mesh needs the axis its vectors are sharded over")
     n_loc = S.shape[-1]
     N = n_loc * (1 if mesh is None else mesh.size(axis))
     offset = block_offset(mesh, n_loc, axis)

@@ -123,6 +123,17 @@ def test_reduced_tensors_keep_their_layout():
         assert sum_samples(mesh, t, torch.ones(2))[0].stride() == t.stride()
 
 
+def test_project_rows_needs_the_axis_under_a_mesh():
+    """A mesh without the vectors' axis raises: its sums would cover every
+    rank while the length counted one block."""
+    from nmf_toolbox_tpu_torch.ops.projection import project_rows
+    from nmf_toolbox_tpu_torch.parallel import make_mesh
+    with one_rank():
+        mesh = make_mesh(1, device_type="cpu")
+        with pytest.raises(ValueError, match="axis"):
+            project_rows(torch.ones(2, 6, dtype=torch.float64), 2.0, 1.0, mesh=mesh)
+
+
 # ---------------------------------------------------------------------------
 # cnmf, nmf2d, chcnmf
 # ---------------------------------------------------------------------------

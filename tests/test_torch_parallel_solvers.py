@@ -150,19 +150,45 @@ def complex_case(m, n, seed=4):
     return V, kw
 
 
-@pytest.mark.parametrize("shape,kind", [((16, 64), "1d"), ((16, 64), "2d"),
-                                        ((15, 61), "2d")])
+VBAR_FLOOR = 0.1  # |V_bar| below which a phase is held at PHASE_ATOL_NEAR_ZERO
+PHASE_ATOL_NEAR_ZERO = 1e-4
+
+
+def last_vbar_abs(V, kw):
+    """|V_bar_i| = |W_i H_i P_i + beta_i (V - V_hat)| of cmfwisa's last
+    step (cmfwisa.m:177-179), (S, m, n): from the port's no-mesh run one
+    iteration short, whose state that step reads."""
+    prev = tt.cmfwisa(V, [2, 3], **dict(kw, maxiter=kw["maxiter"] - 1), **CPU)
+    WH = torch.stack([w @ h for w, h in zip(prev.W, prev.H)])
+    P = torch.stack(list(prev.P))
+    V_hat = torch.sum(WH * P, dim=0)
+    beta = WH / torch.sum(WH, dim=0, keepdim=True)
+    return torch.abs(WH * P + beta * (torch.as_tensor(V) - V_hat)).numpy()
+
+
+CMF_CASES = [((16, 64), "1d"), ((16, 64), "2d"), ((15, 61), "2d")]
+
+
+@pytest.mark.parametrize("shape,kind", CMF_CASES)
 def test_cmfwisa_sharded(ranks, shape, kind):
-    """W, H and the cost at the JAX test's 1e-9; the phases at 1e-4: the
-    phase of a V_bar entry near 0 follows the summation order."""
+    """W, H and the cost at the JAX test's 1e-9; the phases P at 1e-9
+    wherever |V_bar| >= VBAR_FLOOR, and at 1e-4 below it.  V_bar is the
+    small difference of O(1) terms there, so its phase carries rounding
+    forward with a gain of about 1/|V_bar| per iteration: after 8
+    iterations the JAX package's and the port's no-mesh phases differ
+    by 2e-5 at the entry of least |V_bar| (0.0165), and the mesh run's
+    gaps are of that size at the same entries."""
     V, kw = complex_case(*shape)
     got = ranks.solve("nmf_toolbox_tpu_torch.cmfwisa", V, [2, 3], mesh=kind,
                       fields=("W", "H", "P", "cost"), **kw)
+    small = last_vbar_abs(V, kw) < VBAR_FLOOR
+    assert small.mean() < 0.1  # the loose entries are few (3-7 % per source)
     for want in (jt.cmfwisa(V, [2, 3], mesh=jmesh(kind), **kw),
                  tt.cmfwisa(V, [2, 3], **kw, **CPU)):
         close(got, want, ("W", "H"), atol=1e-9, rtol=1e-9)
-        for a, b in zip(got["P"], arr(want.P)):
-            np.testing.assert_allclose(a, b, atol=1e-4)
+        for s, (a, b) in enumerate(zip(got["P"], arr(want.P))):
+            np.testing.assert_allclose(a[~small[s]], b[~small[s]], atol=1e-9)
+            np.testing.assert_allclose(a[small[s]], b[small[s]], atol=PHASE_ATOL_NEAR_ZERO)
 
 
 # ---------------------------------------------------------------------------
@@ -293,3 +319,38 @@ def test_estimator_mesh_reaches_the_solver(ranks, solver):
     np.testing.assert_allclose(H, est.fit_transform(X), atol=1e-10)
     np.testing.assert_allclose(comps, est.components_, atol=1e-10)
     np.testing.assert_allclose(trace, est.cost_trace_, rtol=1e-10)
+
+
+def phase_gaps():
+    """Print, for each case of test_cmfwisa_sharded and each source, the
+    largest |P| gap of the mesh run from the JAX mesh run and from the
+    port's no-mesh run (and of the two no-mesh runs from each other),
+    the |V_bar| at that entry, and the largest |V_bar| among the entries
+    whose gap exceeds 1e-9:  PYTHONPATH=. python tests/test_torch_parallel_solvers.py"""
+    r = Ranks(4)
+    try:
+        for shape, kind in CMF_CASES:
+            V, kw = complex_case(*shape)
+            got = r.solve("nmf_toolbox_tpu_torch.cmfwisa", V, [2, 3], mesh=kind,
+                          fields=("W", "H", "P", "cost"), **kw)
+            vbar = last_vbar_abs(V, kw)
+            plain = arr(tt.cmfwisa(V, [2, 3], **kw, **CPU).P)
+            pairs = {"mesh - JAX mesh": (got["P"], arr(jt.cmfwisa(V, [2, 3], mesh=jmesh(kind),
+                                                                   **kw).P)),
+                     "mesh - port no mesh": (got["P"], plain),
+                     "port no mesh - JAX no mesh": (plain, arr(jt.cmfwisa(V, [2, 3], **kw).P))}
+            for label, (ps, qs) in pairs.items():
+                for s, (a, b) in enumerate(zip(ps, qs)):
+                    d = np.abs(a - b)
+                    i = np.unravel_index(np.argmax(d), d.shape)
+                    print(f"{shape} {kind} {label}, source {s}: max |dP| {d[i]:.3g} at "
+                          f"|V_bar| {vbar[s][i]:.4g} (least {vbar[s].min():.4g}); largest "
+                          f"|V_bar| with |dP| > 1e-9: {vbar[s][d > 1e-9].max(initial=0):.4g}; "
+                          f"entries below {VBAR_FLOOR}: {np.mean(vbar[s] < VBAR_FLOOR):.3f}")
+    finally:
+        r.close()
+
+
+if __name__ == "__main__":
+    import conftest  # noqa: F401  (the JAX package on the CPU's virtual devices)
+    phase_gaps()
