@@ -226,18 +226,50 @@ without printing the last line:
    could flip a decision).  The four kernels' counters, set to 0 at the
    phase's start, read 0 at its end on every process; the phase prints
    its wall time.
+18. nmfsc's phased dispatch and its kernel (~1 min).  (a) the bounded
+   Hoyer projection kernel (hoyer_project, csrc/hoyer.cu) against its
+   plain version on the card in f32 and f64, 48 passes allowed, at H's
+   50 rows of 2000 and W's 50 columns of 5000 (BASELINE #2; the columns
+   as a strided W.mT view), 200 rows of 10 000 and 200 columns of
+   100 000 (phase 7's shape) and a batched round of 8 x 50 x 2000: the
+   same done flags, pass counts equal in f64 and within one in f32 (the
+   sums' order), max error within 1e-4 (f32) and 1e-10 (f64) of the
+   largest entry, identical bits over two runs; kernel ms by CUDA
+   events, the plain version's ms and the bound, the larger of one read
+   of S and one write of v at 3.35 TB/s and 16 operations per entry and
+   pass at 67 (f32) or 34 (f64) TFLOP/s, with the share of it.  (b)
+   ``nmfsc(dispatch="phased")`` against the default dispatch in turns
+   (default, phased, phased, default) through ``sparse_timing`` at
+   BASELINE #2 (H_sparsity 0.6, bench.py's seed-3 inits) and at
+   100 000x10 000 r200 with W 0.5 and H 0.6 on phase 7's V: ms, host
+   reads and kernel launches per iteration, final f32 costs within
+   1e-3; ``profile_device_ms`` (device kernels per iteration, idle
+   share) of both dispatches at BASELINE #2 and of the phased one at
+   full width; linesearch_width 8 through both dispatches at BASELINE
+   #2, final costs within 1e-3.  (c) bench.py's ``_nmfsc_b2_child`` on
+   the port: 30 phased iterations, best wall s of two.  Then phased
+   (and phased with trials=2, whose searches take the slow path's host
+   redo) against default in f64 at 200x300 r10 (both sparse, 50
+   iterations) within rtol 1e-9 with the same n_iters; hoyer_project's counter, set to 0 before (b),
+   above 0 and the four fused counters 0; phased with a one-rank NCCL
+   mesh raises ValueError.  The phase prints its wall time.
 
 Then the card's name and power limit once more (a long log's tail
 keeps them), a JSON line of per-kernel results and, last, the device
 line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
 three fused kernels, phase 6 (the only path that runs it) for
-kl_phi_dot_ht_dma, each counter set to 0 just before;
-``launches_per_iter`` is each kernel's launches in phase 3's two fused
-runs over their iterations (kl_phi_dot_ht_dma's counted there too, where
-no solver calls it).  ``library_ms`` is null for all four: no single
-PyTorch call computes any of them.
-Imports nothing of JAX.
+kl_phi_dot_ht_dma, phase 18's (b) and (c) for hoyer_project, each
+counter set to 0 just before; ``launches_per_iter`` is each fused
+kernel's launches in phase 3's two fused runs over their iterations
+(kl_phi_dot_ht_dma's counted there too, where no solver calls it), and
+hoyer_project's per phased iteration at BASELINE #2 in (b); its ms,
+plain ms and bound are at H's 50 rows of 2000 in f32.  ``library_ms``
+is null for all five: no single PyTorch call computes any of them.
+Imports nothing of JAX.  Phases 16 and 17 join their spawned ranks and
+stop multiprocessing's resource tracker before they end; on the way
+out, pass or fail, any child process still there is stopped and named
+on stderr.
 """
 from __future__ import annotations
 
@@ -329,11 +361,28 @@ MESH_TIMEOUT = 150    # seconds: phase 16's process groups and its ranks' answer
 MESH_RTOL_F64 = 1e-9  # phase 17's f64 two-rank runs vs one rank (tests/test_parallel.py)
 SYM17 = (9_999, 20)   # phase 17's two-rank symnmf: an odd n, padded to two ranks
 STREAM17 = (20_000, 10_000, 100)  # phase 17's two-rank nmf_streaming, one epoch
+HOYER = ("hoyer_project",
+         "nmf_toolbox_tpu/models/nmfsc_phased.py:_project_columns_bounded (lax.fori_loop)",
+         "nmf_toolbox_tpu_torch/csrc/hoyer.cu")
+# Phase 18's projections: label, rows x length (W's columns as rows of
+# W.mT, a strided view), sparseness.  BASELINE #2's H and W, phase 7's
+# shape, and one batched round of 8 candidates of BASELINE #2's H.
+HOYER_SHAPES = (("H rows", (50, 2000), False, 0.6), ("W columns", (50, 5000), True, 0.5),
+                ("H rows", (200, 10_000), False, 0.6), ("W columns", (200, 100_000), True, 0.5),
+                ("batched round", (8, 50, 2000), False, 0.6))
+HOYER_RTOL = {"float32": 1e-4, "float64": 1e-10}  # of the largest entry
+HOYER_PASS_SLACK = {"float32": 1, "float64": 0}  # the sums' order may move a pass in f32
+HOYER_OPS = 16  # operations per entry and pass, counted from csrc/hoyer.cu
+PHASED_RTOL_F64 = 1e-9  # phased vs default nmfsc in f64 on the card
+DISPATCH = {"default": None, "phased": "phased"}  # nmfsc's dispatch= for phase 18
+B2_ITERS, B2_SEED = 30, 3  # bench.py's _nmfsc_b2_child
 # The card's peaks for a kernel's bound (H100 SXM data sheet): f32-accurate
 # tensor-core work in 3xTF32 (three TF32 products per f32 product) and
 # device memory.
 PEAK_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
+# outside the tensor cores, for the Hoyer projection's arithmetic
+PEAK_SIMT = {"float32": 67e12, "float64": 34e12}
 
 
 def say(msg):
@@ -382,8 +431,9 @@ def card():
 
 def profile_device_ms(torch, run, iters):
     """Device ms per iteration by kernel (the 12 largest), busy and wall ms
-    per iteration and the device's idle share, from torch.profiler over
-    one call of ``run``, which runs ``iters`` iterations."""
+    per iteration, device kernels per iteration and the device's idle
+    share, from torch.profiler over one call of ``run``, which runs
+    ``iters`` iterations."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -391,17 +441,19 @@ def profile_device_ms(torch, run, iters):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
+    by_kernel, kernels = {}, 0
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
             by_kernel[evt.key[:80]] = us / 1e3 / iters
+            kernels += evt.count
     busy = sum(by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     return {"device_ms_per_iter": top, "busy_ms_per_iter": busy,
-            "wall_ms_per_iter": wall / iters, "idle_share": 1 - busy * iters / wall}
+            "wall_ms_per_iter": wall / iters, "kernels_per_iter": kernels / iters,
+            "idle_share": 1 - busy * iters / wall}
 
 
 def phase0_device(torch):
@@ -1645,20 +1697,22 @@ def phase13_convolutive(torch, V_big):
     say(f"phase 13 {json.dumps(summary)}")
 
 
-def sparse_timing(torch, name, call):
+def sparse_timing(torch, name, call, phase=14, launches=None):
     """ms and host reads (``core.host_reads``) per iteration of
     ``call(iters)`` from calls of 2 and 2 + SPARSE_ITERS iterations after
-    a warm-up; the trace finite and non-increasing within SPARSE_MONO
-    relative.  A solve that ends on a line-search underflow (cnmfsc with
-    a sparse W does in its first iteration, as the reference does) is
-    reported per executed iteration of the longer call."""
+    a warm-up, and kernel launches per iteration where ``launches()``
+    reads a counter; the trace finite and non-increasing within
+    SPARSE_MONO relative.  A solve that ends on a line-search underflow
+    (cnmfsc with a sparse W does in its first iteration, as the reference
+    does) is reported per executed iteration of the longer call."""
     from nmf_toolbox_tpu_torch import core
+    count = launches or (lambda: 0)
     call(2)  # warm-up
-    r0 = core.host_reads
+    r0, l0 = core.host_reads, count()
     short, ms2 = wall_ms(torch, lambda: call(2))
-    r1 = core.host_reads
+    r1, l1 = core.host_reads, count()
     res, ms22 = wall_ms(torch, lambda: call(2 + SPARSE_ITERS))
-    r2 = core.host_reads
+    r2, l2 = core.host_reads, count()
     c = np.asarray(res.cost, np.float64)
     if not np.all(np.isfinite(c)) or not np.all(np.diff(c) <= SPARSE_MONO * np.abs(c[:-1])):
         raise AssertionError(f"{name}: cost trace not finite or not non-increasing: {c}")
@@ -1667,13 +1721,17 @@ def sparse_timing(torch, name, call):
     done = res.n_iters - short.n_iters
     if done > 0:
         out = {"ms_per_iter": (ms22 - ms2) / done,
-               "reads_per_iter": ((r2 - r1) - (r1 - r0)) / done}
+               "reads_per_iter": ((r2 - r1) - (r1 - r0)) / done,
+               "launches_per_iter": ((l2 - l1) - (l1 - l0)) / done}
     else:  # both calls ended on the same underflow: the whole call per iteration
-        out = {"ms_per_iter": ms22 / res.n_iters, "reads_per_iter": (r2 - r1) / res.n_iters}
+        out = {"ms_per_iter": ms22 / res.n_iters, "reads_per_iter": (r2 - r1) / res.n_iters,
+               "launches_per_iter": (l2 - l1) / res.n_iters}
     out.update(n_iters=res.n_iters, ended_on_underflow=res.n_iters < 2 + SPARSE_ITERS,
                final_cost=float(c[-1]), ms_calls=(ms2, ms22))
-    say(f"phase 14 {name}: {out['ms_per_iter']:.3f} ms/iter, {out['reads_per_iter']:.2f} "
-        f"host reads/iter (calls of 2 and {2 + SPARSE_ITERS}: {ms2:.1f} and {ms22:.1f} ms, "
+    say(f"phase {phase} {name}: {out['ms_per_iter']:.3f} ms/iter, {out['reads_per_iter']:.2f} "
+        f"host reads/iter"
+        + (f", {out['launches_per_iter']:.2f} kernel launches/iter" if launches else "")
+        + f" (calls of 2 and {2 + SPARSE_ITERS}: {ms2:.1f} and {ms22:.1f} ms, "
         f"{short.n_iters} and {res.n_iters} iterations"
         + (", ended on a line-search underflow" if out["ended_on_underflow"] else "")
         + f"), final cost {c[-1]:.7g}")
@@ -2419,11 +2477,80 @@ def check_mesh_launches(launches, who):
                              f"kernel above 0 and {DMA[0]} at 0 expected")
 
 
+def spawn_ranks(target, tmp):
+    """{rank: what it put on the queue} from ``target(rank, tmp, queue)``
+    run in two spawned processes.  Each rank is joined (killed past its
+    wait), the queue closed and freed, and the resource tracker that
+    spawning starts stopped, so that no process outlives the phase."""
+    import gc
+    import multiprocessing
+    import os
+    from multiprocessing import resource_tracker
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, tmp, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        return dict(queue.get(timeout=MESH_TIMEOUT) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+            p.close()
+        queue.close()
+        queue.join_thread()
+        del queue, procs
+        gc.collect()  # the queue's semaphores unregister while the tracker runs
+        tracker = resource_tracker._resource_tracker
+        if hasattr(tracker, "_stop"):
+            tracker._stop()
+        elif getattr(tracker, "_pid", None) is not None:
+            os.close(tracker._fd)  # its end of file stops the tracker
+            os.waitpid(tracker._pid, 0)
+            tracker._fd = tracker._pid = None
+
+
+def stop_children():
+    """Stop and reap every child process still there at the end (none is
+    expected), naming each on stderr."""
+    import os
+    import signal
+    me = str(os.getpid())
+    kids = {}
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            if fields[1] == me:
+                cmd = (stat.parent / "cmdline").read_bytes().replace(b"\0", b" ")
+                kids[int(stat.parent.name)] = (fields[0], cmd.decode(errors="replace")[:200])
+        except (OSError, IndexError):
+            continue
+    for pid, (state, cmd) in kids.items():
+        print(f"chip_smoke: stopping child {pid} ({state}) {cmd}", file=sys.stderr)
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                break
+            for _ in range(50):
+                try:
+                    if os.waitpid(pid, os.WNOHANG)[0]:
+                        break
+                except ChildProcessError:
+                    break
+                time.sleep(0.1)
+            else:
+                continue
+            break
+
+
 def phase16_mesh(torch, fk, V_gram):
     """mesh= on the card: one NCCL rank bit-identical to no mesh, then two
     Gloo ranks sharing the card, identical to each other and within
     MESH_RTOL of one rank, with orbax checkpoints across them."""
-    import multiprocessing
     import tempfile
     import torch.distributed as dist
     from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
@@ -2474,18 +2601,7 @@ def phase16_mesh(torch, fk, V_gram):
             refs[name] = {"W": res.W, "H": res.H, "cost": np.asarray(res.cost)}
         del inputs, batch
         torch.cuda.empty_cache()
-        ctx = multiprocessing.get_context("spawn")
-        queue = ctx.Queue()
-        procs = [ctx.Process(target=mesh_rank, args=(r, tmp, queue)) for r in range(2)]
-        for p in procs:
-            p.start()
-        try:
-            got = dict(queue.get(timeout=MESH_TIMEOUT) for _ in procs)
-        finally:
-            for p in procs:
-                p.join(30)
-                if p.is_alive():
-                    p.kill()
+        got = spawn_ranks(mesh_rank, tmp)
         for r in (0, 1):
             if "error" in got[r]:
                 raise AssertionError(f"phase 16 rank {r} failed:\n{got[r]['error']}")
@@ -2763,7 +2879,6 @@ def phase17_mesh_solvers(torch, fk, V_gram):
     to no mesh at the shapes of phases 12-14 (timed in turns), two Gloo
     ranks sharing the card identical to each other and within MESH_RTOL
     (f64 solvers: 1e-9) of one rank, and no fused kernel launched."""
-    import multiprocessing
     import tempfile
     import torch.distributed as dist
     import nmf_toolbox_tpu_torch as tt
@@ -2814,18 +2929,7 @@ def phase17_mesh_solvers(torch, fk, V_gram):
         for name, run in rank_runs(rank_inputs(torch), MESH_RANK_ITERS, None).items():
             refs[name] = factors(torch, run())
         torch.cuda.empty_cache()
-        ctx = multiprocessing.get_context("spawn")
-        queue = ctx.Queue()
-        procs = [ctx.Process(target=mesh17_rank, args=(r, tmp, queue)) for r in range(2)]
-        for p in procs:
-            p.start()
-        try:
-            got = dict(queue.get(timeout=MESH_TIMEOUT) for _ in procs)
-        finally:
-            for p in procs:
-                p.join(30)
-                if p.is_alive():
-                    p.kill()
+        got = spawn_ranks(mesh17_rank, tmp)
         for r in (0, 1):
             if "error" in got[r]:
                 raise AssertionError(f"phase 17 rank {r} failed:\n{got[r]['error']}")
@@ -2859,6 +2963,229 @@ def phase17_mesh_solvers(torch, fk, V_gram):
     summary["phase_s"] = time.perf_counter() - t0
     say(f"phase 17 wall time {summary['phase_s']:.1f} s")
     say(f"phase 17 {json.dumps(summary)}")
+
+
+def hoyer_input(torch, shape, transposed, dtype, seed):
+    """A projection input like a line-search trial's: a sparse non-negative
+    factor minus a gradient step (rand**4 minus normal noise), generated
+    on the card in f64; W's columns come as rows of a strided W.mT."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    full = shape[:-2] + shape[-2:][::-1] if transposed else shape
+    X = torch.rand(full, generator=g, device="cuda", dtype=torch.float64) ** 4
+    X = (X - 0.05 * torch.randn(full, generator=g, device="cuda", dtype=torch.float64)).to(dtype)
+    return X.mT if transposed else X
+
+
+def hoyer_bound(S, iters):
+    """(ms, "bytes" or "operations"): one read of S and one write of v at
+    PEAK_BYTES against HOYER_OPS per entry per pass this run's vectors
+    took, plus the hyperplane step, at the dtype's SIMT peak."""
+    dt = str(S.dtype).split(".")[-1]
+    N = S.shape[-1]
+    t_bytes = 2 * S.numel() * S.element_size() / PEAK_BYTES
+    t_ops = N * float((2 + HOYER_OPS * iters.double()).sum()) / PEAK_SIMT[dt]
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase18_hoyer_kernel(torch, hk):
+    """The bounded Hoyer projection kernel against its plain version on
+    the card, f32 and f64, at the phased solver's shapes."""
+    from nmf_toolbox_tpu_torch.ops.projection import hoyer_l1_target
+    stats = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for i, (label, shape, transposed, sp) in enumerate(HOYER_SHAPES):
+        k1 = hoyer_l1_target(shape[-1], sp)
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype).split(".")[-1]
+            S = hoyer_input(torch, shape, transposed, dtype, 180 + i)
+            v, done, iters = hk.hoyer_project(S, k1, 1.0, 48)
+            torch.cuda.synchronize()
+            pv, pdone, piters = hk.hoyer_project_reference(S, k1, 1.0, 48)
+            gap = int((iters - piters).abs().max())
+            err = float((v.double() - pv.double()).abs().max())
+            rel = err / float(pv.double().abs().max())
+            name = f"{label} {'x'.join(map(str, shape))} {dt}"
+            if not (torch.equal(done, pdone) and bool(done.all())):
+                raise AssertionError(f"hoyer_project {name}: done flags differ or not all done")
+            if not (gap <= HOYER_PASS_SLACK[dt] and rel <= HOYER_RTOL[dt]):
+                raise AssertionError(f"hoyer_project {name}: passes {gap} apart, rel {rel:.3g}")
+            again = hk.hoyer_project(S, k1, 1.0, 48)
+            if not all(torch.equal(a, b) for a, b in zip((v, done, iters), again)):
+                raise AssertionError(f"hoyer_project {name}: two runs differ in their bits")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            stats["max_rel_err"] = max(stats["max_rel_err"], rel)
+            ms = cuda_ms(torch, lambda: hk.hoyer_project(S, k1, 1.0, 48), 20)
+            plain = cuda_ms(torch, lambda: hk.hoyer_project_reference(S, k1, 1.0, 48), 3)
+            b_ms, b_by = hoyer_bound(S, iters)
+            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                   "passes": [int(iters.min()), int(iters.max())], "rel": rel}
+            stats[name] = row
+            if i == 0 and dtype == torch.float32:  # BASELINE #2's H search
+                stats.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+            say(f"phase 18 hoyer_project {name}{' (a W.mT view)' if transposed else ''}: "
+                f"done flags equal, passes {row['passes'][0]}-{row['passes'][1]} within "
+                f"{gap} of the plain version's, rel {rel:.3g}, abs {err:.3g}, bits equal over "
+                f"two runs; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by} ({100 * b_ms / ms:.1f}% of bound)")
+            del S, v, pv
+    return stats
+
+
+def phase18_phased(torch, fk, dk, hk, V_big):
+    """nmfsc(dispatch="phased") against the default dispatch in turns at
+    BASELINE #2 and at phase 7's width, bench.py's _nmfsc_b2_child on the
+    port, f64 agreement at SPARSE_SMALL, and the refusal of a mesh; the
+    kernel counters set to 0 before and read after."""
+    import tempfile
+    import torch.distributed as dist
+    import nmf_toolbox_tpu_torch as tt
+    from nmf_toolbox_tpu_torch.parallel import init_distributed, make_mesh
+    zero_fused_counts(fk)
+    dk.kl_phi_dot_ht_dma_launches = 0
+    hk.hoyer_project_launches = 0
+    summary = {}
+    count = lambda: hk.hoyer_project_launches  # noqa: E731
+
+    def in_turns(label, calls):
+        """default, phased, phased, default through sparse_timing; the
+        mean of each pair, and f32 final costs within SPARSE_F32_RTOL."""
+        outs = {"default": [], "phased": []}
+        for d in ("default", "phased", "phased", "default"):
+            out, _ = sparse_timing(torch, f"{label} dispatch {d}", calls[d], phase=18,
+                                   launches=count)
+            outs[d].append(out)
+        row = {d: {key: float(np.mean([o[key] for o in os_]))
+                   for key in ("ms_per_iter", "reads_per_iter", "launches_per_iter")}
+               for d, os_ in outs.items()}
+        costs = [o["final_cost"] for os_ in outs.values() for o in os_]
+        gap = (max(costs) - min(costs)) / min(costs)
+        if not gap <= SPARSE_F32_RTOL:
+            raise AssertionError(f"{label}: final costs {costs} spread {gap:.3g}")
+        row["final_cost_gap"] = gap
+        say(f"phase 18 {label}, in turns: default {row['default']['ms_per_iter']:.3f} ms/iter, "
+            f"{row['default']['reads_per_iter']:.2f} reads/iter; phased "
+            f"{row['phased']['ms_per_iter']:.3f} ms/iter, {row['phased']['reads_per_iter']:.2f} "
+            f"reads/iter, {row['phased']['launches_per_iter']:.2f} kernel launches/iter; "
+            f"final costs within {gap:.3g}")
+        return row
+
+    # b: BASELINE #2 with bench.py's seed-3 inits, then phase 7's width
+    m, n, k = SPARSE_BASE
+    rng = np.random.default_rng(B2_SEED)
+    V = torch.from_numpy(rng.uniform(0.1, 1.0, (m, n)).astype(np.float32)).cuda()
+    W0 = torch.from_numpy(rng.uniform(size=(m, k)).astype(np.float32)).cuda()
+    H0 = rng.uniform(size=(k, n)).astype(np.float32)
+    H0 = torch.from_numpy(H0 / np.sqrt((H0 ** 2).sum(1, keepdims=True))).cuda()
+    b2 = {d: (lambda it, d=d: tt.nmfsc(V, k, W_init=W0, H_init=H0, H_sparsity=0.6,
+                                        maxiter=it, tolerance=NEVER, dispatch=DISPATCH[d]))
+          for d in DISPATCH}
+    label = f"nmfsc H_sparsity 0.6 {m}x{n} r{k}"
+    summary[label] = in_turns(label, b2)
+    # batched rounds: linesearch_width 8 through both dispatches
+    finals = {}
+    for d in DISPATCH:
+        out, _ = sparse_timing(torch, f"{label} width 8 dispatch {d}", lambda it, d=d: tt.nmfsc(
+            V, k, W_init=W0, H_init=H0, H_sparsity=0.6, maxiter=it, tolerance=NEVER,
+            linesearch_width=8, dispatch=DISPATCH[d]), phase=18, launches=count)
+        summary[label][f"{d}_width_8"] = out
+        finals[d] = out["final_cost"]
+    gap = abs(finals["phased"] - finals["default"]) / finals["default"]
+    if not gap <= SPARSE_F32_RTOL:
+        raise AssertionError(f"{label} width 8: final costs {finals} apart by {gap:.3g}")
+    for d in ("default", "phased"):
+        prof = profile_device_ms(torch, lambda: b2[d](ITERS), ITERS)
+        summary[label][d]["profile"] = prof
+        say(f"phase 18 profile {label} dispatch {d}, {ITERS} iterations with the one-time "
+            f"work: {json.dumps(prof)}")
+
+    # c: bench.py's _nmfsc_b2_child on the port, 30 iterations, best of 2
+    b2["phased"](2)  # warm-up
+    best = None
+    for _ in range(2):
+        f = float(1.0 + 1e-5 * np.random.default_rng().uniform(0.1, 1.0))
+        r, ms = wall_ms(torch, lambda: tt.nmfsc(V, k, W_init=W0 * f, H_init=H0,
+                                                H_sparsity=0.6, maxiter=B2_ITERS,
+                                                tolerance=NEVER, dispatch="phased"))
+        c = np.asarray(r.cost)
+        if not (r.n_iters == B2_ITERS and np.all(np.isfinite(c))):
+            raise AssertionError(f"bench.py's nmfsc child on the port: n_iters {r.n_iters}")
+        best = ms if best is None else min(best, ms)
+    summary["nmfsc_b2"] = {"nmfsc_b2_wall_s": best / 1e3,
+                           "nmfsc_b2_ms_per_iter": best / B2_ITERS,
+                           "nmfsc_b2_final_cost": float(c[-1])}
+    say(f"phase 18 bench.py's _nmfsc_b2_child on the port: {json.dumps(summary['nmfsc_b2'])}")
+    del V, W0, H0, b2
+
+    m, n = V_big.shape
+    k = GRAM[2]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    W0 = torch.rand((m, k), generator=g, device="cuda")
+    H0 = torch.rand((k, n), generator=g, device="cuda")
+    big = {d: (lambda it, d=d: tt.nmfsc(V_big, k, W_init=W0, H_init=H0, W_sparsity=0.5,
+                                         H_sparsity=0.6, maxiter=it, tolerance=NEVER,
+                                         dispatch=DISPATCH[d]))
+           for d in DISPATCH}
+    label = f"nmfsc W_sparsity 0.5 H_sparsity 0.6 {m}x{n} r{k}"
+    summary[label] = in_turns(label, big)
+    prof = profile_device_ms(torch, lambda: big["phased"](ITERS), ITERS)
+    summary[label]["phased"]["profile"] = prof
+    say(f"phase 18 profile {label} dispatch phased, {ITERS} iterations with the one-time "
+        f"work: {json.dumps(prof)}")
+    del W0, H0, big
+    torch.cuda.empty_cache()
+
+    # f64 at SPARSE_SMALL: phased against default
+    ms_, ns_, ks_, _ = SPARSE_SMALL
+    rng = np.random.default_rng(46)
+    Hs = rng.uniform(size=(ks_, ns_))
+    small = dict(W_init=rng.uniform(size=(ms_, ks_)),
+                 H_init=Hs / np.sqrt((Hs ** 2).sum(1, keepdims=True)), W_sparsity=0.5,
+                 H_sparsity=0.6, maxiter=SMALL_ITERS, tolerance=NEVER, dtype=np.float64,
+                 device="cuda")
+    Vs = rng.uniform(0.05, 1.0, (ms_, ns_))
+    a = tt.nmfsc(Vs, ks_, **small)
+    b = tt.nmfsc(Vs, ks_, dispatch="phased", **small)
+    gap = float(np.max(np.abs(b.cost - a.cost) / np.abs(a.cost))) if len(a.cost) == len(b.cost) \
+        else np.inf
+    if not (a.n_iters == b.n_iters and gap <= PHASED_RTOL_F64):
+        raise AssertionError(f"f64 phased vs default: n_iters {b.n_iters} / {a.n_iters}, "
+                             f"costs {gap:.3g} apart")
+    gap_f = max(float((x - y).abs().max() / y.abs().max()) for x, y in ((b.W, a.W), (b.H, a.H)))
+    # trials=2 sends searches to the slow path's host redo
+    c = tt.nmfsc(Vs, ks_, dispatch="phased", trials=2, **small)
+    gap2 = float(np.max(np.abs(c.cost - a.cost) / np.abs(a.cost))) \
+        if len(a.cost) == len(c.cost) else np.inf
+    if not (a.n_iters == c.n_iters and gap2 <= PHASED_RTOL_F64):
+        raise AssertionError(f"f64 phased trials=2 vs default: n_iters {c.n_iters} / "
+                             f"{a.n_iters}, costs {gap2:.3g} apart")
+    summary["f64_small_gap"], summary["f64_small_factor_gap"] = gap, gap_f
+    summary["f64_small_gap_trials_2"] = gap2
+    say(f"phase 18 f64 {ms_}x{ns_} r{ks_} W 0.5 H 0.6, {SMALL_ITERS} iterations: phased vs "
+        f"default cost traces {gap:.3g} apart (allowed {PHASED_RTOL_F64}), W and H {gap_f:.3g} "
+        f"of their largest entry, {a.n_iters} iterations each; with trials=2 (slow-path "
+        f"redos) {gap2:.3g}")
+
+    launches = fused_counts(fk)
+    launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
+    launches[HOYER[0]] = hk.hoyer_project_launches
+    say(f"phase 18 kernel launches in phase 18: {json.dumps(launches)}")
+    if launches[HOYER[0]] == 0 or any(v for key, v in launches.items() if key != HOYER[0]):
+        raise AssertionError(f"phase 18 launches: {launches}")
+    summary["launches"] = launches[HOYER[0]]
+
+    # a one-rank mesh is refused by the phased dispatch
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/rendezvous18", 1, 0, backend="nccl",
+                         timeout=MESH_TIMEOUT)
+        try:
+            tt.nmfsc(Vs, ks_, dispatch="phased", mesh=make_mesh(1), **small)
+        except ValueError as e:
+            say(f"phase 18 phased with a one-rank mesh: ValueError ({e})")
+        else:
+            raise AssertionError("the phased dispatch accepted mesh=")
+        finally:
+            dist.destroy_process_group()
+    say(f"phase 18 {json.dumps(summary)}")
+    return summary
 
 
 def main():
@@ -2922,6 +3249,11 @@ def main():
     phase15_utilities_front_ends(torch, fk, V)
     phase16_mesh(torch, fk, V)
     phase17_mesh_solvers(torch, fk, V)
+    from nmf_toolbox_tpu_torch.ops.kernels import hoyer as hk
+    t18 = time.perf_counter()
+    hoyer_stats = phase18_hoyer_kernel(torch, hk)
+    phased = phase18_phased(torch, fk, dk, hk, V)
+    say(f"phase 18 wall time {time.perf_counter() - t18:.1f} s")
     del V
 
     def per_iter(name):
@@ -2953,6 +3285,17 @@ def main():
         "bound_by": dma_stats["bound_by"], "library_ms": None,
         "tflops": dma_stats["tflops"],
     })
+    name, replaces, source = HOYER
+    b2 = phased[f"nmfsc H_sparsity 0.6 {'x'.join(map(str, SPARSE_BASE[:2]))} r{SPARSE_BASE[2]}"]
+    kernels.append({
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": phased["launches"],
+        "launches_per_iter": b2["phased"]["launches_per_iter"],
+        "max_abs_err": hoyer_stats["max_abs_err"], "max_rel_err": hoyer_stats["max_rel_err"],
+        "ms": hoyer_stats["ms"], "plain_ms": hoyer_stats["plain_ms"],
+        "bound_ms": hoyer_stats["bound_ms"], "bound_by": hoyer_stats["bound_by"],
+        "library_ms": None,
+    })
     say(card())  # again, where the tail of a long log keeps it
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -2961,4 +3304,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

@@ -120,6 +120,29 @@ def _make_step(V, spec, search, valid=None, mesh=None):
     return step, cost
 
 
+def sparsity_targets(cfg, m: int, n: int) -> tuple:
+    """(w_sp, h_sp, l1_w, l1_h): the sparseness of each factor clamped to
+    1 (nmfsc.m:90-92) and its L1 target for unit-L2 vectors, 0 where the
+    factor is not sparse (nmfsc.m:93,106)."""
+    w_sp = min(float(cfg.get("W_sparsity", 0.0) or 0.0), 1.0)
+    h_sp = min(float(cfg.get("H_sparsity", 0.0) or 0.0), 1.0)
+    return (w_sp, h_sp, hoyer_l1_target(m, w_sp) if w_sp > 0 else 0.0,
+            hoyer_l1_target(n, h_sp) if h_sp > 0 else 0.0)
+
+
+def initial_factors(cfg, gen, m: int, n: int, k: int, dtype, device) -> tuple:
+    """(W0, H0): the caller's inits, or uniform draws with H's rows at
+    unit L2 (nmfsc.m:73-81)."""
+    W0 = cfg.get("W_init")
+    W0 = (uniform_init(gen, (m, k), dtype, device, floor_eps=False) if W0 is None
+          else as_tensor(W0, dtype, device))
+    H0 = cfg.get("H_init")
+    if H0 is None:
+        H0 = uniform_init(gen, (k, n), dtype, device, floor_eps=False)
+        return W0, H0 / torch.sqrt(torch.sum(H0 * H0, dim=1, keepdim=True))
+    return W0, as_tensor(H0, dtype, device)
+
+
 def nmfsc(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     """Hoyer sparse NMF.  Returns Result as (W, H, cost).
 
@@ -133,9 +156,12 @@ def nmfsc(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     (nmfsc.m:57-62).  cost[0] is the initial cost (length maxiter+1
     semantics, nmfsc.m:137-139).
 
-    ``dispatch`` None, "fused" and "phased" all run this solver (its
-    outer loop already runs on the host); the phased dispatch's own keys
-    are accepted and change nothing.  Matmuls run in full f32 whatever
+    ``dispatch`` None and "fused" run this solver; "phased" runs
+    ``models/nmfsc_phased.py`` (bounded trial rounds, speculative blocks
+    of iterations read once each, the bounded projection as one kernel
+    launch; single-device, its own keys ``trials``, ``proj_passes``,
+    ``fuse_iteration``, ``spec_ahead``, ``batched_trials``), bit-identical
+    to this solver on the CPU.  Matmuls run in full f32 whatever
     the caller's TF32 settings, which come back on return.  ``mesh``
     (``parallel.make_mesh``): every rank calls with the same arguments
     and gets the whole W and H; ``linesearch_width`` "auto" stays 0 on a
@@ -144,7 +170,10 @@ def nmfsc(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     """
     cfg = merge_config(config, kwargs)
     dispatch = cfg.pop("dispatch", None)
-    if dispatch not in (None, "fused", "phased"):
+    if dispatch == "phased":  # refuses a mesh before check_mesh, as JAX does
+        from .nmfsc_phased import nmfsc_phased
+        return nmfsc_phased(V, num_basis_elems, cfg)
+    if dispatch not in (None, "fused"):
         raise ValueError(f"unknown dispatch {dispatch!r}; "
                          "use 'fused' (default) or 'phased'")
     mesh = check_mesh(cfg.get("mesh"))
@@ -156,21 +185,8 @@ def nmfsc(V, num_basis_elems: int, config: dict | None = None, **kwargs):
     k = int(num_basis_elems)
 
     maxiter, tolerance, eps, gen = common_scalars(cfg)
-    w_sp = min(float(cfg.get("W_sparsity", 0.0) or 0.0), 1.0)  # nmfsc.m:90-92
-    h_sp = min(float(cfg.get("H_sparsity", 0.0) or 0.0), 1.0)
-
-    W0 = cfg.get("W_init")
-    W0 = (uniform_init(gen, (m, k), dtype, src, floor_eps=False) if W0 is None
-          else as_tensor(W0, dtype, src))  # nmfsc.m:73-75
-    H0 = cfg.get("H_init")
-    if H0 is None:
-        H0 = uniform_init(gen, (k, n), dtype, src, floor_eps=False)
-        H0 = H0 / torch.sqrt(torch.sum(H0 * H0, dim=1, keepdim=True))  # nmfsc.m:78-81
-    else:
-        H0 = as_tensor(H0, dtype, src)
-
-    l1_w = hoyer_l1_target(m, w_sp) if w_sp > 0 else 0.0
-    l1_h = hoyer_l1_target(n, h_sp) if h_sp > 0 else 0.0
+    w_sp, h_sp, l1_w, l1_h = sparsity_targets(cfg, m, n)
+    W0, H0 = initial_factors(cfg, gen, m, n, k, dtype, src)
     # Continuation: factors of an earlier run are already feasible (a
     # re-projection is only fp-approximately idempotent and would perturb
     # the trajectory), and the stepsizes resume where they stopped

@@ -57,6 +57,12 @@ _SIGNATURES = {
     # (k, int[4] out: rows, warps, column groups, blocks per SM)
     # -> the dma kernel's tier for k (-1 outside 1..512)
     "nmf_dma_tier": ((_I, _P), _I),
+    # (S, v, zero, done, iters, B, N, passes, k1, k2, is_double, stream)
+    # -> cudaError_t
+    "nmf_hoyer_project": ((_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
+                           ctypes.c_double, ctypes.c_double, _I, _P), _I),
+    # (N) -> threads per block of the Hoyer projection
+    "nmf_hoyer_threads": ((_I,), _I),
 }
 
 

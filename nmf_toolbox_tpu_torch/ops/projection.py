@@ -16,6 +16,10 @@ pass.
 The vectors lie along the LAST axis (:func:`project_rows`); leading
 axes are batch, which is how a line search projects all its candidates
 in one call.  :func:`project_columns` is the JAX package's (N, B) form.
+
+:func:`project_rows_bounded` is the phased nmfsc dispatch's form: a
+fixed pass budget, no host read, and on a CUDA tensor one launch of the
+hand-written kernel of ``ops/kernels/hoyer.py``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 from ..core import as_tensor, host_read, resolve_device, resolve_dtype
 from ..parallel.collectives import sum_axis
 from ..parallel.mesh import block_offset
+from .kernels import hoyer
 
 PASSES_PER_READ = 4  # projection passes between two reads of "all done"
 
@@ -85,6 +90,22 @@ def project_rows(S, k1, k2, valid: int | None = None, mesh=None, axis=None):
         if host_read(torch.all(done)):
             break
     return v, iters
+
+
+def project_rows_bounded(S, k1, k2, passes: int):
+    """Project every vector S[..., :] in at most ``min(passes, N + 1)``
+    passes, each vector frozen once it is done, reading nothing back.
+
+    The counterpart of the JAX package's ``_project_columns_bounded``
+    (models/nmfsc_phased.py:70-113) in :func:`project_rows`'s layout,
+    with the port's own pass (its cancellation-free root included).
+    Single-device: no ``valid``, no mesh.  k1 and k2 are Python scalars.
+    Returns (V, done), ``done`` each vector's flag.  When ``passes``
+    covers the pass count, V equals :func:`project_rows`'s bit for bit
+    on the CPU.  A CUDA tensor launches ``csrc/hoyer.cu`` or raises.
+    """
+    v, done, _ = hoyer.hoyer_project(S, k1, k2, passes)
+    return v, done
 
 
 def _pass(v, zero, nz, done, iters, k1, k2, N, zero_t, total):

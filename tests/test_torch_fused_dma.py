@@ -86,18 +86,19 @@ def test_build_covers_every_source(monkeypatch, tmp_path):
     """The library is built from every csrc/*.cu, and its name hashes
     all of them and the headers they include, so editing any one source
     or header gives a new build."""
-    assert [p.name for p in _build.sources()] == ["fused.cu", "fused_dma.cu"]
+    assert [p.name for p in _build.sources()] == ["fused.cu", "fused_dma.cu", "hoyer.cu"]
     assert [p.name for p in _build.headers()] == ["tile_ops.cuh"]
     for p in _build.sources() + _build.headers():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     seen = {_build.library_path()}
     assert next(iter(seen)).name.startswith("libnmf_kernels_")
-    for name in ("fused_dma.cu", "tile_ops.cuh"):
+    for name in ("fused_dma.cu", "hoyer.cu", "tile_ops.cuh"):
         (tmp_path / name).write_text((tmp_path / name).read_text() + "\n// edited\n")
         seen.add(_build.library_path())
-    assert len(seen) == 3
+    assert len(seen) == 4
     assert "nmf_kl_phi_dot_ht_dma" in _build._SIGNATURES
+    assert "nmf_hoyer_project" in _build._SIGNATURES
 
 
 # ---------------------------------------------------------------------------

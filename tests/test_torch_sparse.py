@@ -178,14 +178,14 @@ def test_cnmfsc_resume_state_shape_checked():
 
 @pytest.mark.parametrize("dispatch", [None, "fused", "phased"])
 def test_dispatch_runs_the_one_solver(dispatch):
-    """Every dispatch runs this solver; "phased" equals the JAX package's
-    phased dispatch (itself bit-identical to its fused solver), and its
-    own keys change nothing."""
+    """Every dispatch equals the JAX package's phased dispatch (itself
+    bit-identical to its fused solver); "phased" runs the port's phased
+    dispatch with the keys it honours (3 trials a round, blocks of 2
+    iterations), which the other dispatches ignore."""
     V, W0, H0 = nmfsc_problem(2)
     kw = dict(W_sparsity=0.5, H_sparsity=0.6, maxiter=15, tolerance=1e-30, dtype=np.float64)
-    t = tt.nmfsc(V, 4, W_init=W0, H_init=H0, dispatch=dispatch, trials=3,
-                 proj_passes=2, batched_trials=True, fuse_iteration=False,
-                 spec_ahead=2, **kw, **CPU)
+    t = tt.nmfsc(V, 4, W_init=W0, H_init=H0, dispatch=dispatch, trials=3, spec_ahead=2,
+                 **kw, **CPU)
     j = _jax_phased(2)
     assert_parity(t, j)
 
