@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PyTorch + CUDA port's fused kernels and fused nmf for one source tree.
+"""Time the PyTorch + CUDA port's kernels and the solvers that run them, for one source tree.
 
     python benchmarks_torch/turns.py [--root DIR]
 
@@ -13,7 +13,22 @@ makes them) the plain composition, ``phi_dot_ht`` and
 (host clock around 10 synchronised iterations, after a 2-iteration
 warm-up), and ``chip_smoke.profile_device_ms`` over one more fused KL
 run; last, ``nmf_hals`` at chip_smoke.py's phase 7 shape and inputs
-(100 000x10 000 r200, 20 sweeps after a 2-sweep warm-up).  Timing only:
+(100 000x10 000 r200, 20 sweeps after a 2-sweep warm-up).  Then the
+Hoyer projection (``hoyer_project``, 48 passes allowed) at H's 50 rows
+of 2000 (BASELINE #2) and at W's 200 columns of 100 000 given as rows
+of a strided W.mT view (phase 7's width), f32 and f64, inputs as
+chip_smoke.py phase 18 makes them: the device µs a call
+(``chip_smoke.kernel_device_ms``: CUDA events around calls queued
+behind a device sleep, the wrapper's copy included, and the kernel's
+own µs a launch from the profiler), the ms a call by CUDA events over
+20 back-to-back calls, and at H's shape the wrapper's host µs a call
+(``chip_smoke.wrapper_host_us``, 200 calls); and the default-dispatch
+solvers that project, as chip_smoke.py phase 14 runs them: ``nmfsc`` at
+BASELINE #2 (5000x2000 r50, H_sparsity 0.6) and at 100 000x10 000 r200
+(W 0.5, H 0.6), ``cnmfsc`` at 513x10 000 r64 T8 (H 0.5): ms, host reads
+and ``hoyer_project`` launches per iteration
+(``chip_smoke.sparse_timing``) and the device's idle share
+(``chip_smoke.profile_device_ms`` over 10 iterations).  Timing only:
 each tree's own chip_smoke.py checks its kernels.
 
 Prints one JSON line with the card's name and power limit.  Trees share
@@ -35,6 +50,59 @@ import numpy as np
 HERE = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE))
 import chip_smoke as cs  # noqa: E402  (this checkout's helpers, whatever --root)
+
+HOYER_SHAPES = (("H 50x2000", (50, 2000), False, 0.6),
+                ("W 200x100000", (200, 100_000), True, 0.5))
+HOYER_REPS, HOST_REPS = 20, 200
+
+
+def projection(torch, out):
+    """The Hoyer projection kernel's times, and the default solvers that
+    run it, into ``out``."""
+    import nmf_toolbox_tpu_torch as tt
+    from nmf_toolbox_tpu_torch.ops.kernels import hoyer as hk
+    from nmf_toolbox_tpu_torch.ops.projection import hoyer_l1_target
+    for i, (label, shape, transposed, sp) in enumerate(HOYER_SHAPES):
+        k1 = hoyer_l1_target(shape[-1], sp)
+        for dtype in (torch.float32, torch.float64):
+            S = cs.hoyer_input(torch, shape, transposed, dtype, 180 + i)
+            call = (lambda S=S: hk.hoyer_project(S, k1, 1.0, 48))  # noqa: E731
+            queued, own, seen = cs.kernel_device_ms(torch, call, HOYER_REPS)
+            row = {"device_us": None if own is None else 1e3 * own, "profiler_seen": seen,
+                   "queued_us": 1e3 * queued, "event_ms": cs.cuda_ms(torch, call, HOYER_REPS)}
+            if not transposed:
+                row["host_us"] = cs.wrapper_host_us(torch, call, HOST_REPS)
+            out[f"hoyer {label} {str(dtype).split('.')[-1]}"] = row
+            del S
+
+    m, n, k = cs.SPARSE_BASE
+    g = torch.Generator(device="cuda").manual_seed(15)
+    V = 0.1 + 0.9 * torch.rand((m, n), generator=g, device="cuda")
+    W0, H0 = (torch.rand(s, generator=g, device="cuda") for s in ((m, k), (k, n)))
+    runs = {f"nmfsc H 0.6 {m}x{n} r{k}": (lambda it: tt.nmfsc(
+        V, k, W_init=W0, H_init=H0, H_sparsity=0.6, maxiter=it, tolerance=cs.NEVER))}
+    m, n, k, T = cs.CONV
+    g = torch.Generator(device="cuda").manual_seed(17)
+    Vc = 0.1 + 0.9 * torch.rand((m, n), generator=g, device="cuda")
+    W3 = 0.1 + 0.9 * torch.rand((m, k, T), generator=g, device="cuda")
+    H3 = torch.rand((k, n), generator=g, device="cuda")
+    runs[f"cnmfsc H 0.5 {m}x{n} r{k} T{T}"] = (lambda it: tt.cnmfsc(
+        Vc, k, T, W_init=W3, H_init=H3, H_sparsity=0.5, maxiter=it, tolerance=cs.NEVER))
+    m, n, k = cs.GRAM
+    Vb = 0.05 + 0.95 * torch.rand((m, n), generator=torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    Wb, Hb = (torch.rand(s, generator=g, device="cuda") for s in ((m, k), (k, n)))
+    runs[f"nmfsc W 0.5 H 0.6 {m}x{n} r{k}"] = (lambda it: tt.nmfsc(
+        Vb, k, W_init=Wb, H_init=Hb, W_sparsity=0.5, H_sparsity=0.6, maxiter=it,
+        tolerance=cs.NEVER))
+    for name, call in runs.items():
+        row, _ = cs.sparse_timing(torch, name, call, phase="turns",
+                                  launches=lambda: hk.hoyer_project_launches)
+        prof = cs.profile_device_ms(torch, lambda: call(cs.ITERS), cs.ITERS)
+        row.update(idle_share=prof["idle_share"], busy_ms_per_iter=prof["busy_ms_per_iter"],
+                   kernels_per_iter=prof["kernels_per_iter"])
+        out[name] = row
 
 
 def main():
@@ -92,6 +160,8 @@ def main():
     _, ms = cs.wall_ms(torch, lambda: nmf_hals(V, k, W_init=W0, H_init=H0,
                                                maxiter=cs.HALS_ITERS, tolerance=1e-30))
     out["hals_ms_per_iter"] = ms / cs.HALS_ITERS
+    del V, W0, H0
+    projection(torch, out)
     print(json.dumps(out), flush=True)
 
 

@@ -226,23 +226,37 @@ without printing the last line:
    could flip a decision).  The four kernels' counters, set to 0 at the
    phase's start, read 0 at its end on every process; the phase prints
    its wall time.
-18. nmfsc's phased dispatch and its kernel (~1 min).  (a) the bounded
-   Hoyer projection kernel (hoyer_project, csrc/hoyer.cu) against its
-   plain version on the card in f32 and f64, 48 passes allowed, at H's
-   50 rows of 2000 and W's 50 columns of 5000 (BASELINE #2; the columns
-   as a strided W.mT view), 200 rows of 10 000 and 200 columns of
-   100 000 (phase 7's shape) and a batched round of 8 x 50 x 2000: the
-   same done flags, pass counts equal in f64 and within one in f32 (the
-   sums' order), max error within 1e-4 (f32) and 1e-10 (f64) of the
-   largest entry, identical bits over two runs; kernel ms by CUDA
-   events, the plain version's ms and the bound, the larger of one read
-   of S and one write of v at 3.35 TB/s and 16 operations per entry and
-   pass at 67 (f32) or 34 (f64) TFLOP/s, with the share of it.  (b)
+18. nmfsc's phased dispatch and its kernel (~1.5 min).  (a) the Hoyer
+   projection kernel (hoyer_project, csrc/hoyer.cu) against its plain
+   version on the card in f32 and f64, 48 passes allowed: first every
+   tier of the kernel's table (``hoyer_tiers``, read from the library:
+   one CTA, clusters of 2 to 16 CTAs) at its largest N on 3 vectors,
+   every other tier's as a strided W.mT view; then H's 50 rows of 2000
+   and W's 50 columns of 5000 (BASELINE #2; the columns as a strided
+   W.mT view), 200 rows of 10 000 and 200 columns of 100 000 (phase 7's
+   shape), a batched round of 8 x 50 x 2000, the streaming tier on 3
+   vectors of 1 000 000, W's columns padded (``valid`` 99 000 of 100 000)
+   and targets k1 and k2 per vector at H's and W's shapes: the same done
+   flags, pass counts equal in f64 and within one in f32 (the sums'
+   order), max error within 1e-4 (f32) and 1e-10 (f64) of the largest
+   entry, the pad 0, identical bits over two runs.  For
+   each case after the sweep: the device ms a call (CUDA events around
+   each of 20 calls queued behind a device sleep) and the kernel's own
+   ms a launch from ``profile_device_ms`` over 20 calls (the mean over
+   the launches the profiler saw, with the share of the calls it saw: in
+   a long process it loses some), beside the ms a call by CUDA events
+   over 20 back-to-back calls, which the host paces (at W's shapes the
+   wrapper copies the strided columns contiguous first), at H's 50 rows
+   of 2000 the wrapper's host µs a call (200 calls queued, the clock read
+   before the synchronise), the plain version's ms and the bound, the larger of one
+   read of S and one write of v at 3.35 TB/s and 12 operations per entry
+   and pass at 67 (f32) or 34 (f64) TFLOP/s, with the share of it.  (b)
    ``nmfsc(dispatch="phased")`` against the default dispatch in turns
    (default, phased, phased, default) through ``sparse_timing`` at
    BASELINE #2 (H_sparsity 0.6, bench.py's seed-3 inits) and at
    100 000x10 000 r200 with W 0.5 and H 0.6 on phase 7's V: ms, host
-   reads and kernel launches per iteration, final f32 costs within
+   reads and ``hoyer_project`` launches per iteration (the default's
+   projections launch it too), final f32 costs within
    1e-3; ``profile_device_ms`` (device kernels per iteration, idle
    share) of both dispatches at BASELINE #2 and of the phased one at
    full width; linesearch_width 8 through both dispatches at BASELINE
@@ -263,7 +277,12 @@ kl_phi_dot_ht_dma, phase 18's (b) and (c) for hoyer_project, each
 counter set to 0 just before; ``launches_per_iter`` is each fused
 kernel's launches in phase 3's two fused runs over their iterations
 (kl_phi_dot_ht_dma's counted there too, where no solver calls it), and
-hoyer_project's per phased iteration at BASELINE #2 in (b); its ms,
+hoyer_project's per phased iteration at BASELINE #2 in (b), with
+``launches_per_iter_default`` the default dispatch's there; its ms (the
+device's, events queued behind a device sleep; ``profiler_ms`` the
+kernel's own a launch from the profiler, null only where it saw no
+launch, and ``profiler_seen`` the share of the calls it saw; ``event_ms``
+by CUDA events back to back; ``host_us`` the wrapper's),
 plain ms and bound are at H's 50 rows of 2000 in f32.  ``library_ms``
 is null for all five: no single PyTorch call computes any of them.
 Imports nothing of JAX.  Phases 16 and 17 join their spawned ranks and
@@ -340,6 +359,7 @@ CKPT_ITERS, CKPT_CHUNK = 20, 5  # phase 15's checkpointed runs, CLI and estimato
 CLI_RTOL = 1e-6       # the CLI's factors against one nmf call in process
 HULL_PR8_S = 2.98     # convex_hull_anchors at 100 000x10 000 in PR 8's phase 12
 SLEEP_CYCLES = 10 ** 9  # ~0.5 s of device clock ahead of each gated solve
+QUEUE_CYCLES = 5 * 10 ** 7  # ~25 ms of device clock while phase 18 queues its timed calls
 GATE_ITERS = 10       # iterations of a gated solve (its launches fit the queue)
 REL_TOL = 1e-4        # tests/test_pallas.py, f32 path
 SOLVER_RTOL = 2e-3    # tests/test_pallas.py::test_fused_solver_matches_naive
@@ -362,7 +382,8 @@ MESH_RTOL_F64 = 1e-9  # phase 17's f64 two-rank runs vs one rank (tests/test_par
 SYM17 = (9_999, 20)   # phase 17's two-rank symnmf: an odd n, padded to two ranks
 STREAM17 = (20_000, 10_000, 100)  # phase 17's two-rank nmf_streaming, one epoch
 HOYER = ("hoyer_project",
-         "nmf_toolbox_tpu/models/nmfsc_phased.py:_project_columns_bounded (lax.fori_loop)",
+         "nmf_toolbox_tpu/ops/projection.py:89 (project_columns' lax.while_loop); "
+         "nmf_toolbox_tpu/models/nmfsc_phased.py:70 (_project_columns_bounded's lax.fori_loop)",
          "nmf_toolbox_tpu_torch/csrc/hoyer.cu")
 # Phase 18's projections: label, rows x length (W's columns as rows of
 # W.mT, a strided view), sparseness.  BASELINE #2's H and W, phase 7's
@@ -370,9 +391,19 @@ HOYER = ("hoyer_project",
 HOYER_SHAPES = (("H rows", (50, 2000), False, 0.6), ("W columns", (50, 5000), True, 0.5),
                 ("H rows", (200, 10_000), False, 0.6), ("W columns", (200, 100_000), True, 0.5),
                 ("batched round", (8, 50, 2000), False, 0.6))
+# Phase 18 (a)'s further cases: label, rows x length, W.mT view, sparseness,
+# valid (None: all), targets per vector.  The streaming tier (vectors
+# longer than a cluster holds), padded columns as a mesh pads W, and
+# per-vector k1 and k2 as projfunc's callers may give them.
+HOYER_EXTRA = (("streaming tier", (3, 1_000_000), False, 0.6, None, False),
+               ("valid W columns", (200, 100_000), True, 0.5, 99_000, False),
+               ("per-vector k H rows", (50, 2000), False, 0.6, None, True),
+               ("per-vector k W columns", (200, 100_000), True, 0.5, None, True))
+HOYER_TIER_ROWS = 3  # vectors per case of the tier sweep
+HOST_REPS = 200  # calls for the wrapper's host µs per call
 HOYER_RTOL = {"float32": 1e-4, "float64": 1e-10}  # of the largest entry
 HOYER_PASS_SLACK = {"float32": 1, "float64": 0}  # the sums' order may move a pass in f32
-HOYER_OPS = 16  # operations per entry and pass, counted from csrc/hoyer.cu
+HOYER_OPS = 12  # operations (an FMA as two) per entry and pass, counted from csrc/hoyer.cu
 PHASED_RTOL_F64 = 1e-9  # phased vs default nmfsc in f64 on the card
 DISPATCH = {"default": None, "phased": "phased"}  # nmfsc's dispatch= for phase 18
 B2_ITERS, B2_SEED = 30, 3  # bench.py's _nmfsc_b2_child
@@ -441,19 +472,21 @@ def profile_device_ms(torch, run, iters):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_kernel, kernels = {}, 0
+    by_kernel, counts, kernels = {}, {}, 0
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
             by_kernel[evt.key[:80]] = us / 1e3 / iters
+            counts[evt.key[:80]] = evt.count / iters
             kernels += evt.count
     busy = sum(by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12])
     return {"device_ms_per_iter": top, "busy_ms_per_iter": busy,
             "wall_ms_per_iter": wall / iters, "kernels_per_iter": kernels / iters,
-            "idle_share": 1 - busy * iters / wall}
+            "idle_share": 1 - busy * iters / wall,
+            "launches_per_iter_by_kernel": {k: counts[k] for k in top}}
 
 
 def phase0_device(torch):
@@ -1794,11 +1827,14 @@ def phase14_sparse_complex_audio(torch, V_big):
     import nmf_toolbox_tpu_torch as tt
     from nmf_toolbox_tpu_torch.core import EPS
     from nmf_toolbox_tpu_torch.models import batched as tb
-    summary = {"ms_per_iter": {}, "reads_per_iter": {}}
+    from nmf_toolbox_tpu_torch.ops.kernels import hoyer as hk
+    summary = {"ms_per_iter": {}, "reads_per_iter": {}, "hoyer_launches_per_iter": {}}
+    launches = lambda: hk.hoyer_project_launches  # noqa: E731
 
     def keep(name, out):
         summary["ms_per_iter"][name] = out["ms_per_iter"]
         summary["reads_per_iter"][name] = out["reads_per_iter"]
+        summary["hoyer_launches_per_iter"][name] = out["launches_per_iter"]
 
     # a: nmfsc at BASELINE #2, both line-search widths
     m, n, k = SPARSE_BASE
@@ -1809,11 +1845,16 @@ def phase14_sparse_complex_audio(torch, V_big):
     traces = {}
     for w in SPARSE_WIDTHS:
         name = f"nmfsc H_sparsity 0.6 {m}x{n} r{k} width {w}"
-        out, res = sparse_timing(torch, name, lambda it: tt.nmfsc(
-            V, k, W_init=W0, H_init=H0, H_sparsity=0.6, maxiter=it, tolerance=NEVER,
-            linesearch_width=w))
+        call = lambda it: tt.nmfsc(V, k, W_init=W0, H_init=H0, H_sparsity=0.6,  # noqa: E731
+                                   maxiter=it, tolerance=NEVER, linesearch_width=w)
+        out, res = sparse_timing(torch, name, call, launches=launches)
         keep(name, out)
         traces[w] = np.asarray(res.cost, np.float64)
+        if w == 0:  # the default's idle share
+            prof = profile_device_ms(torch, lambda: call(ITERS), ITERS)
+            summary[f"idle_share {name}"] = prof["idle_share"]
+            say(f"phase 14 profile {name}, {ITERS} iterations with the one-time work: "
+                f"{json.dumps(prof)}")
     a, b = (traces[w] for w in SPARSE_WIDTHS)
     gap = float(np.max(np.abs(a - b) / np.abs(a))) if len(a) == len(b) else np.inf
     if not gap <= WIDTH_RTOL:
@@ -1832,10 +1873,11 @@ def phase14_sparse_complex_audio(torch, V_big):
     name = f"nmfsc W_sparsity 0.5 H_sparsity 0.6 {m}x{n} r{k}"
     call = lambda it: tt.nmfsc(V_big, k, W_init=W0, H_init=H0, W_sparsity=0.5,  # noqa: E731
                                H_sparsity=0.6, maxiter=it, tolerance=NEVER)
-    out, _ = sparse_timing(torch, name, call)
+    out, _ = sparse_timing(torch, name, call, launches=launches)
     keep(name, out)
     prof = profile_device_ms(torch, lambda: call(ITERS), ITERS)
     summary["profile_nmfsc_full"] = prof
+    summary[f"idle_share {name}"] = prof["idle_share"]
     say(f"phase 14 profile {name}, {ITERS} iterations with the one-time work: {json.dumps(prof)}")
     del W0, H0
 
@@ -1849,7 +1891,7 @@ def phase14_sparse_complex_audio(torch, V_big):
         name = f"cnmfsc H_sparsity 0.5{' W_sparsity 0.5' if extra else ''} {m}x{n} r{k} T{T}"
         call = lambda it: tt.cnmfsc(V, k, T, W_init=W0, H_init=H0, H_sparsity=0.5,  # noqa: E731
                                     maxiter=it, tolerance=NEVER, **extra)
-        out, _ = sparse_timing(torch, name, call)
+        out, _ = sparse_timing(torch, name, call, launches=launches)
         keep(name, out)
         iters = min(ITERS, out["n_iters"])  # a sparse W ends in its first iteration
         prof = profile_device_ms(torch, lambda: call(ITERS), iters)
@@ -2987,46 +3029,165 @@ def hoyer_bound(S, iters):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def phase18_hoyer_kernel(torch, hk):
-    """The bounded Hoyer projection kernel against its plain version on
-    the card, f32 and f64, at the phased solver's shapes."""
+def hoyer_tiers(hk, dtype):
+    """The kernel's tiers for ``dtype``, read from the library's table: a
+    list of (index, threads, entries per thread, CTAs per vector, largest
+    N), the streaming tier last with largest N None."""
+    tiers, N = [], 1
+    while True:
+        index, threads, items, cluster = hk.tier(N, dtype)
+        if items == 0:
+            return tiers + [(index, threads, items, cluster, None)]
+        tiers.append((index, threads, items, cluster, threads * items * cluster))
+        N = threads * items * cluster + 1
+
+
+def hoyer_targets(torch, S, sp, valid, per_vector, seed):
+    """(k1, k2): a sparseness's L1 target for unit L2 norm, or per vector
+    sparsenesses around ``sp`` at squared norms 0.5-2, on the card."""
     from nmf_toolbox_tpu_torch.ops.projection import hoyer_l1_target
+    n = S.shape[-1] if valid is None else valid
+    if not per_vector:
+        return hoyer_l1_target(n, sp), 1.0
+    rng = np.random.default_rng(seed)
+    batch = S.shape[:-1]
+    k2 = rng.uniform(0.5, 2.0, batch)
+    k1 = np.vectorize(lambda x: hoyer_l1_target(n, x))(rng.uniform(sp - 0.2, sp + 0.2, batch))
+    return (torch.from_numpy(k1 * np.sqrt(k2)).to("cuda", S.dtype),
+            torch.from_numpy(k2).to("cuda", S.dtype))
+
+
+def check_hoyer(torch, hk, S, k1, k2, valid, name):
+    """The kernel against its plain version on S (48 passes allowed): the
+    same done flags, every vector done, passes equal in f64 and within one
+    in f32, v within HOYER_RTOL of the largest entry, the pad 0, bits
+    equal over two runs.  Returns (iters, pass gap, abs error, rel error)."""
+    dt = str(S.dtype).split(".")[-1]
+    v, done, iters = hk.hoyer_project(S, k1, k2, 48, valid)
+    torch.cuda.synchronize()
+    pv, pdone, piters = hk.hoyer_project_reference(S, k1, k2, 48, valid)
+    gap = int((iters - piters).abs().max())
+    err = float((v.double() - pv.double()).abs().max())
+    rel = err / float(pv.double().abs().max())
+    if not (torch.equal(done, pdone) and bool(done.all())):
+        raise AssertionError(f"hoyer_project {name}: done flags differ or not all done")
+    if not (gap <= HOYER_PASS_SLACK[dt] and rel <= HOYER_RTOL[dt]):
+        raise AssertionError(f"hoyer_project {name}: passes {gap} apart, rel {rel:.3g}")
+    if valid is not None and bool(v[..., valid:].any()):
+        raise AssertionError(f"hoyer_project {name}: the pad past {valid} is not 0")
+    again = hk.hoyer_project(S, k1, k2, 48, valid)
+    if not all(torch.equal(a, b) for a, b in zip((v, done, iters), again)):
+        raise AssertionError(f"hoyer_project {name}: two runs differ in their bits")
+    return iters, gap, err, rel
+
+
+def queued_device_ms(torch, call, reps):
+    """Device ms a call: ``reps`` calls queued behind a device sleep, each
+    between two CUDA events, so that a pair brackets the card's work for
+    the call (a wrapper's copy included) and none of the host's."""
+    call()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda._sleep(QUEUE_CYCLES)
+    for start, end in pairs:
+        start.record()
+        call()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
+
+
+def kernel_device_ms(torch, call, reps):
+    """(device ms a call by ``queued_device_ms``; the projection kernel's
+    own device ms a launch from ``profile_device_ms`` over ``reps`` calls,
+    the mean over the launches the profiler saw, None where it saw none;
+    the share of the calls whose launch it saw).  In a long process the
+    profiler now and then loses kernels (seen on the card: none, or a
+    fraction, of a window's launches)."""
+    queued = queued_device_ms(torch, call, reps)
+    prof = profile_device_ms(torch, lambda: [call() for _ in range(reps)], reps)
+    seen = sum(n for key, n in prof["launches_per_iter_by_kernel"].items() if "hoyer" in key)
+    ms = sum(ms for key, ms in prof["device_ms_per_iter"].items() if "hoyer" in key)
+    return queued, (ms / seen if seen else None), seen
+
+
+def wrapper_host_us(torch, call, reps):
+    """The host's µs per call: ``reps`` calls queued back to back, the
+    clock read before the synchronise."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
+def phase18_hoyer_kernel(torch, hk):
+    """The Hoyer projection kernel against its plain version on the card,
+    f32 and f64: every tier of the table, then the solvers' shapes and
+    the streaming, ``valid`` and per-vector cases, timed."""
     stats = {"max_abs_err": 0.0, "max_rel_err": 0.0}
-    for i, (label, shape, transposed, sp) in enumerate(HOYER_SHAPES):
-        k1 = hoyer_l1_target(shape[-1], sp)
+
+    def keep(err, rel):
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        stats["max_rel_err"] = max(stats["max_rel_err"], rel)
+
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[-1]
+        for index, threads, items, cluster, cap in hoyer_tiers(hk, dtype):
+            if cap is None:
+                continue  # the streaming tier: HOYER_EXTRA's first case
+            S = hoyer_input(torch, (HOYER_TIER_ROWS, cap), index % 2 == 1, dtype, 170 + index)
+            name = f"tier {index} ({threads} threads x {items} x {cluster} CTAs) N {cap} {dt}"
+            k1, k2 = hoyer_targets(torch, S, 0.6, None, False, index)
+            iters, gap, err, rel = check_hoyer(torch, hk, S, k1, k2, None, name)
+            keep(err, rel)
+            say(f"phase 18 hoyer_project {name}{' (a W.mT view)' if index % 2 else ''}: done "
+                f"flags equal, passes {int(iters.min())}-{int(iters.max())} within {gap} of "
+                f"the plain version's, rel {rel:.3g}, bits equal over two runs")
+            del S
+    cases = [c + (None, False) for c in HOYER_SHAPES] + list(HOYER_EXTRA)
+    for i, (label, shape, transposed, sp, valid, per_vector) in enumerate(cases):
         for dtype in (torch.float32, torch.float64):
             dt = str(dtype).split(".")[-1]
             S = hoyer_input(torch, shape, transposed, dtype, 180 + i)
-            v, done, iters = hk.hoyer_project(S, k1, 1.0, 48)
-            torch.cuda.synchronize()
-            pv, pdone, piters = hk.hoyer_project_reference(S, k1, 1.0, 48)
-            gap = int((iters - piters).abs().max())
-            err = float((v.double() - pv.double()).abs().max())
-            rel = err / float(pv.double().abs().max())
+            k1, k2 = hoyer_targets(torch, S, sp, valid, per_vector, i)
             name = f"{label} {'x'.join(map(str, shape))} {dt}"
-            if not (torch.equal(done, pdone) and bool(done.all())):
-                raise AssertionError(f"hoyer_project {name}: done flags differ or not all done")
-            if not (gap <= HOYER_PASS_SLACK[dt] and rel <= HOYER_RTOL[dt]):
-                raise AssertionError(f"hoyer_project {name}: passes {gap} apart, rel {rel:.3g}")
-            again = hk.hoyer_project(S, k1, 1.0, 48)
-            if not all(torch.equal(a, b) for a, b in zip((v, done, iters), again)):
-                raise AssertionError(f"hoyer_project {name}: two runs differ in their bits")
-            stats["max_abs_err"] = max(stats["max_abs_err"], err)
-            stats["max_rel_err"] = max(stats["max_rel_err"], rel)
-            ms = cuda_ms(torch, lambda: hk.hoyer_project(S, k1, 1.0, 48), 20)
-            plain = cuda_ms(torch, lambda: hk.hoyer_project_reference(S, k1, 1.0, 48), 3)
+            iters, gap, err, rel = check_hoyer(torch, hk, S, k1, k2, valid, name)
+            keep(err, rel)
+            call = (lambda: hk.hoyer_project(S, k1, k2, 48, valid))  # noqa: E731
+            ms = cuda_ms(torch, call, 20)
+            dev_ms, prof_ms, seen = kernel_device_ms(torch, call, 20)
+            plain = cuda_ms(torch, lambda: hk.hoyer_project_reference(S, k1, k2, 48, valid), 3)
             b_ms, b_by = hoyer_bound(S, iters)
-            row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                   "passes": [int(iters.min()), int(iters.max())], "rel": rel}
+            row = {"ms": ms, "device_ms": dev_ms, "profiler_ms": prof_ms, "profiler_seen": seen,
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                   "passes": [int(iters.min()), int(iters.max())],
+                   "rel": rel, "tier": hk.tier(shape[-1], dtype)}
+            extra = " (a contiguous copy of W's columns, then the kernel)" if transposed else ""
+            if i == 0:  # BASELINE #2's H search: the wrapper's host time
+                row["host_us"] = wrapper_host_us(torch, call, HOST_REPS)
+                extra = f", the wrapper's host time {row['host_us']:.1f} µs a call"
             stats[name] = row
-            if i == 0 and dtype == torch.float32:  # BASELINE #2's H search
-                stats.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-            say(f"phase 18 hoyer_project {name}{' (a W.mT view)' if transposed else ''}: "
-                f"done flags equal, passes {row['passes'][0]}-{row['passes'][1]} within "
-                f"{gap} of the plain version's, rel {rel:.3g}, abs {err:.3g}, bits equal over "
-                f"two runs; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.4f} ms by "
-                f"{b_by} ({100 * b_ms / ms:.1f}% of bound)")
-            del S, v, pv
+            if i == 0 and dtype == torch.float32:
+                stats.update(ms=dev_ms, profiler_ms=prof_ms, profiler_seen=seen, event_ms=ms,
+                             plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                             host_us=row["host_us"])
+            profiled = ("the profiler saw no launch of it" if prof_ms is None
+                        else f"the profiler's {prof_ms:.4f} ms a launch for the kernel alone, "
+                        f"{seen:.2f} of the calls' launches seen")
+            say(f"phase 18 hoyer_project {name}{' (a W.mT view)' if transposed else ''}, tier "
+                f"{row['tier']}: done flags equal, passes {row['passes'][0]}-"
+                f"{row['passes'][1]} within {gap} of the plain version's, rel {rel:.3g}, abs "
+                f"{err:.3g}, bits equal over two runs; device {dev_ms:.4f} ms a call (events "
+                f"queued behind a device sleep; {profiled}), CUDA events back to back "
+                f"{ms:.4f} ms a call{extra}; plain {plain:.3f} ms, bound {b_ms:.4f} ms by "
+                f"{b_by} ({100 * b_ms / (prof_ms or dev_ms):.1f}% of bound on the device, "
+                f"{'the kernel alone' if prof_ms else 'a call'})")
+            del S, k1, k2
     return stats
 
 
@@ -3062,7 +3223,8 @@ def phase18_phased(torch, fk, dk, hk, V_big):
             raise AssertionError(f"{label}: final costs {costs} spread {gap:.3g}")
         row["final_cost_gap"] = gap
         say(f"phase 18 {label}, in turns: default {row['default']['ms_per_iter']:.3f} ms/iter, "
-            f"{row['default']['reads_per_iter']:.2f} reads/iter; phased "
+            f"{row['default']['reads_per_iter']:.2f} reads/iter, "
+            f"{row['default']['launches_per_iter']:.2f} kernel launches/iter; phased "
             f"{row['phased']['ms_per_iter']:.3f} ms/iter, {row['phased']['reads_per_iter']:.2f} "
             f"reads/iter, {row['phased']['launches_per_iter']:.2f} kernel launches/iter; "
             f"final costs within {gap:.3g}")
@@ -3237,7 +3399,8 @@ def main():
     say(f"phase 13 kernel launches in phase 13: {json.dumps(launches)}")
     if any(launches.values()):
         raise AssertionError(f"phase 13 launched a kernel: {launches}")
-    # Phase 14 ports modules that reach no pallas_call: no kernel may launch.
+    # Phase 14 ports modules that reach no pallas_call: no fused kernel may
+    # launch (their projections launch hoyer_project, counted per run).
     fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
     dk.kl_phi_dot_ht_dma_launches = 0
     phase14_sparse_complex_audio(torch, V)
@@ -3291,8 +3454,11 @@ def main():
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": phased["launches"],
         "launches_per_iter": b2["phased"]["launches_per_iter"],
+        "launches_per_iter_default": b2["default"]["launches_per_iter"],
         "max_abs_err": hoyer_stats["max_abs_err"], "max_rel_err": hoyer_stats["max_rel_err"],
-        "ms": hoyer_stats["ms"], "plain_ms": hoyer_stats["plain_ms"],
+        "ms": hoyer_stats["ms"], "profiler_ms": hoyer_stats["profiler_ms"],
+        "profiler_seen": hoyer_stats["profiler_seen"], "event_ms": hoyer_stats["event_ms"],
+        "host_us": hoyer_stats["host_us"], "plain_ms": hoyer_stats["plain_ms"],
         "bound_ms": hoyer_stats["bound_ms"], "bound_by": hoyer_stats["bound_by"],
         "library_ms": None,
     })

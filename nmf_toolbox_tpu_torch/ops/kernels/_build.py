@@ -39,6 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     # (V, W, H, out1, out2, scratch, m, n, k, mode, stream) -> cudaError_t
     "nmf_phi_dot_ht": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
@@ -57,12 +59,14 @@ _SIGNATURES = {
     # (k, int[4] out: rows, warps, column groups, blocks per SM)
     # -> the dma kernel's tier for k (-1 outside 1..512)
     "nmf_dma_tier": ((_I, _P), _I),
-    # (S, v, zero, done, iters, B, N, passes, k1, k2, is_double, stream)
-    # -> cudaError_t
-    "nmf_hoyer_project": ((_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
-                           ctypes.c_double, ctypes.c_double, _I, _P), _I),
-    # (N) -> threads per block of the Hoyer projection
-    "nmf_hoyer_threads": ((_I,), _I),
+    # (S, v, done, iters, B, B1, N, valid, s0, s1, v0, v1,
+    #  k1, k1 stride, k1 value, k2, k2 stride, k2 value, passes, is_double,
+    #  stream) -> cudaError_t
+    "nmf_hoyer_project": ((_P, _P, _P, _P, _L, _L, _I, _I, _L, _L, _L, _L,
+                           _P, _L, _D, _P, _L, _D, _I, _I, _P), _I),
+    # (N, is_double, int[3] out: threads, entries per thread, CTAs per
+    # vector) -> the Hoyer projection's tier for N (-1 for N < 1)
+    "nmf_hoyer_tier": ((_I, _I, _P), _I),
 }
 
 

@@ -8,10 +8,11 @@ The reference projects one vector at a time with a data-dependent loop
 (each pass zeroes at least one more coefficient, so it ends within N
 passes).  Here all vectors are projected together, each frozen once it
 is done, and the loop stops when every vector is done or after N + 1
-passes, the JAX package's rule.  A pass over a frozen vector is an exact
+passes, the JAX package's rule.  On a card that loop is one launch of
+the hand-written kernel of ``ops/kernels/hoyer.py``, which reads nothing
+back.  Elsewhere it runs here: a pass over a frozen vector is an exact
 no-op, so the loop runs its passes in groups and reads "all done" on the
-host once per group: the result is bit-identical to reading after every
-pass.
+host once per group, bit-identical to reading after every pass.
 
 The vectors lie along the LAST axis (:func:`project_rows`); leading
 axes are batch, which is how a line search projects all its candidates
@@ -50,35 +51,31 @@ def project_rows(S, k1, k2, valid: int | None = None, mesh=None, axis=None):
     L1 and L2 sums, the count of zeroed entries, the midpoint's norm, the
     count of negative entries) goes through that axis' sum, ``valid``
     counts global entries, and every rank reads the same "all done".
+
+    A CUDA tensor whose vectors are whole on this rank (no mesh, or one
+    rank on ``axis``) is projected by one launch of the kernel of
+    ``ops/kernels/hoyer.py`` with a budget of N + 1 passes, reading
+    nothing back.  CPU tensors, and vectors sharded over two or more
+    ranks (whose sums need collectives), run the passes here, reading
+    "all done" once per group of ``PASSES_PER_READ``.
     """
     if mesh is not None and axis is None:
         raise ValueError("project_rows: a mesh needs the axis its vectors are sharded over")
     n_loc = S.shape[-1]
     N = n_loc * (1 if mesh is None else mesh.size(axis))
-    offset = block_offset(mesh, n_loc, axis)
-    dt, dev = S.dtype, S.device
-    batch = S.shape[:-1]
-    k1 = torch.as_tensor(k1, dtype=dt, device=dev).expand(batch)
-    k2 = torch.as_tensor(k2, dtype=dt, device=dev).expand(batch)
-    zero_t = torch.zeros((), dtype=dt, device=dev)
+    if S.device.type == "cuda" and N == n_loc:
+        # nmf_toolbox_tpu/ops/projection.py's while_loop (:55-58,89) as one
+        # launch: N + 1 passes at most, each vector stopping once done.
+        v, _, iters = hoyer.hoyer_project(S, k1, k2, N + 1, valid)
+        return v, iters
 
     def total(*xs):  # per-vector sums over every rank's entries
         return sum_axis(mesh, axis, *xs)
 
-    if valid is None or valid >= N:
-        # Initial projection onto the sum hyperplane (projfunc.m:22).
-        v = S + ((k1 - total(torch.sum(S, dim=-1))) / N)[..., None]
-        zero = torch.zeros(S.shape, dtype=torch.bool, device=dev)
-        nz = torch.zeros(batch, dtype=dt, device=dev)
-    else:
-        pad = torch.arange(offset, offset + n_loc, device=dev) >= valid
-        Sm = torch.where(pad, zero_t, S)
-        v = torch.where(pad, zero_t,
-                        Sm + ((k1 - total(torch.sum(Sm, dim=-1))) / valid)[..., None])
-        zero = pad.expand(S.shape)
-        nz = torch.full(batch, float(N - valid), dtype=dt, device=dev)
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
-    iters = torch.zeros(batch, dtype=torch.int32, device=dev)
+    v, zero, nz, k1, k2 = start(S, k1, k2, valid, N, block_offset(mesh, n_loc, axis), total)
+    zero_t = torch.zeros((), dtype=S.dtype, device=S.device)
+    done = torch.zeros(v.shape[:-1], dtype=torch.bool, device=S.device)
+    iters = torch.zeros(v.shape[:-1], dtype=torch.int32, device=S.device)
 
     group = PASSES_PER_READ
     j = 0
@@ -106,6 +103,38 @@ def project_rows_bounded(S, k1, k2, passes: int):
     """
     v, done, _ = hoyer.hoyer_project(S, k1, k2, passes)
     return v, done
+
+
+def local_sums(*xs):
+    """:func:`~nmf_toolbox_tpu_torch.parallel.collectives.sum_axis` with
+    no mesh: the sums as they are."""
+    return xs[0] if len(xs) == 1 else xs
+
+
+def start(S, k1, k2, valid, N, offset=0, total=local_sums):
+    """The state before the first pass: ``(v, zero, nz, k1, k2)``, v on
+    the sum hyperplane (projfunc.m:22), the zero mask, each vector's count
+    of zeroed entries and the targets broadcast over the batch.  Entries
+    at or past ``valid`` (global index: this rank's block starts at
+    ``offset``) start zeroed and the step divides by ``valid``; ``total``
+    sums per vector over every rank's entries."""
+    dt, dev = S.dtype, S.device
+    batch = S.shape[:-1]
+    k1 = torch.as_tensor(k1, dtype=dt, device=dev).expand(batch)
+    k2 = torch.as_tensor(k2, dtype=dt, device=dev).expand(batch)
+    if valid is None or valid >= N:
+        v = S + ((k1 - total(torch.sum(S, dim=-1))) / N)[..., None]
+        zero = torch.zeros(S.shape, dtype=torch.bool, device=dev)
+        nz = torch.zeros(batch, dtype=dt, device=dev)
+    else:
+        zero_t = torch.zeros((), dtype=dt, device=dev)
+        pad = torch.arange(offset, offset + S.shape[-1], device=dev) >= valid
+        Sm = torch.where(pad, zero_t, S)
+        v = torch.where(pad, zero_t,
+                        Sm + ((k1 - total(torch.sum(Sm, dim=-1))) / valid)[..., None])
+        zero = pad.expand(S.shape)
+        nz = torch.full(batch, float(N - valid), dtype=dt, device=dev)
+    return v, zero, nz, k1, k2
 
 
 def _pass(v, zero, nz, done, iters, k1, k2, N, zero_t, total):

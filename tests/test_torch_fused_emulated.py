@@ -43,6 +43,7 @@ def host_source(path, helpers=ASM_HELPERS) -> str:
     src = re.sub(r'#include "(\w+\.cuh)"',
                  lambda m: (path.parent / m.group(1)).read_text(), path.read_text())
     src = src.replace("#include <cuda_runtime.h>", f'#include "{EMU_H}"')
+    src = src.replace("#include <cooperative_groups.h>\n", "")
     for name in helpers:
         # Each helper runs from its declaration line to the closing brace
         # at the start of a line; with a template line before it if any.
@@ -51,16 +52,20 @@ def host_source(path, helpers=ASM_HELPERS) -> str:
         assert m, f"no {name} in {path.name}"
         src = src[:m.start()] + src[m.end():]
     src = src.replace("extern __shared__ float4 smem4[];", "float4* smem4 = emu_smem;")
+    src = re.sub(r"extern __shared__ __align__\(16\) unsigned char (\w+)\[\];",
+                 r"unsigned char* \1 = emu_cta_smem;", src)
     src = re.sub(r"([\w:.]+(?:<[^<>]*>)?)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ", src)
     return src
 
 
-def compile_emulated(source, tmp, helpers=ASM_HELPERS):
+def compile_emulated(source, tmp, helpers=ASM_HELPERS, prelude=""):
+    """The library of ``source`` built for the CPU; ``prelude`` (macro
+    definitions, such as a tier table) goes before the source."""
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("needs a C++20 host compiler (g++ or clang++)")
     cpp, so = tmp / f"{source.stem}_emu.cpp", tmp / f"lib{source.stem}_emu.so"
-    cpp.write_text(host_source(source, helpers))
+    cpp.write_text(prelude + host_source(source, helpers))
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
                     "-o", str(so), str(cpp)], check=True, timeout=300)
     return _build.bind(ctypes.CDLL(str(so)))
