@@ -2,9 +2,13 @@
 """On-card smoke run of nmf_toolbox_tpu_torch, the PyTorch + CUDA port.
 
 Run from the repository root on a machine with one CUDA card (Hopper,
-sm_90a) and the CUDA toolkit:
+sm_90a; phase 19 needs four) and the CUDA toolkit:
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --phase 19`` runs phases 0 and 1, phase 7's V
+on card 0 and phase 19 alone (four cards), and ends with the line
+"phase 19 only: ok" in place of the last line below.
 
 Phases, one line each; any failure raises and the script exits non-zero
 without printing the last line:
@@ -197,7 +201,7 @@ without printing the last line:
    above 0 (kl_phi_dot_ht_dma's at 0, on one rank and on two); ``run_checkpointed(nmf, method="fused", backend="orbax")``
    over the two ranks, 20 iterations in chunks of 5, straight through and
    crash-resumed, bit-identical to one meshed call, with the ms per save.
-   A real multi-card NCCL mesh is not run: the machine has one card.
+   Phase 19 runs a mesh of one NCCL rank a card where there are four.
 17. mesh= for the rest of the solvers (~1.5 min).  One NCCL rank, 5
    iterations each, every input a tensor on the card: ``lnmf``,
    ``seminmf``, ``convexnmf``, ``chnmf`` and ``constrainednmf`` KL at
@@ -268,6 +272,51 @@ without printing the last line:
    above 0 and the four fused counters 0; phased with a one-rank NCCL
    mesh raises ValueError.  The phase prints its wall time.
 
+19. the mesh on four cards (~2 min), where ``torch.cuda.device_count()``
+   is at least 4 (else one line: "did not run", with the card count):
+   the links (``nvidia-smi topo -m``, ``nvidia-smi nvlink --status``,
+   peer access), then four ranks spawned by the script, one NCCL rank a
+   card (rank r on card r), each on ``make_mesh(4)`` and on
+   ``make_mesh(shape=(2, 2))``, running at full width, 10 iterations:
+   ``nmf`` fused KL and IS at 40 000x10 000 r100, gram from phase 16's
+   inits and with NNDSVD seeding from a host V, ``nmf_hals`` and default
+   ``nmfsc`` (W 0.5, H 0.6) at 100 000x10 000 r200; at phase 17's shapes,
+   3 iterations: the Gram/MU family, cnmf, nmf2d, chcnmf, nmfsc and
+   cnmfsc in f64, constrainednmf, symnmf, cmfwisa, one streamed epoch,
+   KL ``nmf`` with weights, and the engines (``nmf_multiseed``,
+   ``nmf_batched``, ``nmf_encode``, ``cnmf_encode``, ``nmf2d_encode``,
+   ``cmfwisa_encode``; phases 9-10's inputs, 3 iterations).  Rank 0 runs
+   each also with no mesh on card 0.  Per solve and mesh: every rank
+   bit-identical to rank 0 (a hash of W, H and the cost), the largest
+   relative error of W, H and the cost against one card within 1e-4 (f32)
+   or 1e-9 (f64), the same n_iters; the f32 HALS, seminmf and full-width
+   nmfsc, whose steps amplify the order of a sum past 1e-4, are timed
+   and their error printed, and an f64 twin of each is held to 1e-9;
+   HALS from NNDSVDA seeds of a host V runs in f64: the seeds (NNDSVDA
+   of the whole V on each rank's card, as the solver seeds under a mesh)
+   and 1 iteration are held to 1e-9; at 5 iterations its error is
+   printed and not held (3.5e-8 in W, cost 7.7e-10).
+   ms/iter on one card and on each rank, collectives per iteration, MB
+   reduced per iteration (PERF.md §3's formulas), each rank's kernel
+   counters (set to 0 before the meshed call): the three fused kernels
+   above 0 on every rank of the fused runs and ``kl_phi_dot_ht_dma`` at
+   0, ``hoyer_project`` above 0 on every rank of nmfsc and cnmfsc, no
+   fused kernel elsewhere.  On each mesh ``save_factors_orbax`` and
+   ``load_factors_orbax`` of a fused KL result restored bit-identical,
+   and ``run_checkpointed`` fused KL, 20 iterations in chunks of 5,
+   straight and crash-resumed, bit-identical to one meshed call.  The
+   device ms (CUDA events, 20 calls) and host µs of one ``all_reduce`` of
+   3 floats to 80.2 MB between the four cards and within each axis of
+   the 2x2 mesh, of the port's ``sum_all`` of two tensors, of cnmf's
+   halo (an ``all_gather`` of T - 1 columns a rank), and of a
+   host-bound step's round trip (3 floats summed over the four cards and
+   read back) beside the same step with no sum.  Then ``torchrun --nproc-per-node 4 -m
+   nmf_toolbox_tpu_torch nmf V.npy --k 200 --mesh 4`` on phase 7's V
+   from injected inits: every rank exits 0, rank 0 alone prints, the
+   factors within 1e-4 of the same command in process on card 0, and no
+   process of the command left after it.  The phase prints its wall
+   time.
+
 Then the card's name and power limit once more (a long log's tail
 keeps them), a JSON line of per-kernel results and, last, the device
 line.  A
@@ -285,8 +334,11 @@ launch, and ``profiler_seen`` the share of the calls it saw; ``event_ms``
 by CUDA events back to back; ``host_us`` the wrapper's),
 plain ms and bound are at H's 50 rows of 2000 in f32.  ``library_ms``
 is null for all five: no single PyTorch call computes any of them.
-Imports nothing of JAX.  Phases 16 and 17 join their spawned ranks and
-stop multiprocessing's resource tracker before they end; on the way
+Each fused kernel's and hoyer_project's entry also lists its launches on
+each rank in phase 19's 1x4 run (fused KL; full-width nmfsc), or null
+where phase 19 did not run.  Imports nothing of JAX.  Phases 16, 17 and
+19 join their spawned ranks and stop multiprocessing's resource tracker
+before they end; on the way
 out, pass or fail, any child process still there is stopped and named
 on stderr.
 """
@@ -381,6 +433,17 @@ MESH_TIMEOUT = 150    # seconds: phase 16's process groups and its ranks' answer
 MESH_RTOL_F64 = 1e-9  # phase 17's f64 two-rank runs vs one rank (tests/test_parallel.py)
 SYM17 = (9_999, 20)   # phase 17's two-rank symnmf: an odd n, padded to two ranks
 STREAM17 = (20_000, 10_000, 100)  # phase 17's two-rank nmf_streaming, one epoch
+ERROR_GRACE = 30      # seconds the other ranks get once one has failed
+CARDS19 = 4           # phase 19's cards, one NCCL rank each
+ITERS19 = 10          # phase 19's full-width solves (phase 16's depth)
+SMALL_ITERS19 = 3     # phase 19's solves at phase 17's shapes (phase 17: 5; engines: 100)
+TIMEOUT19 = 600       # seconds: phase 19's process group and its ranks' answers
+ALLREDUCE_REPS = 20   # all_reduce calls per timing
+# Phase 19's all_reduce sizes in floats, from PERF.md §3's formulas (1-D mesh of 4).
+ALLREDUCE19 = {"3 floats": 3, "k x k at r200, 0.16 MB": 200 * 200,
+               "fused KL W-phase, 16.0 MB": 40_000 * 100,
+               "fused IS W-phase, 32.0 MB": 2 * 40_000 * 100,
+               "gram V H' and H H', 80.2 MB": 100_000 * 200 + 200 * 200}
 HOYER = ("hoyer_project",
          "nmf_toolbox_tpu/ops/projection.py:89 (project_columns' lax.while_loop); "
          "nmf_toolbox_tpu/models/nmfsc_phased.py:70 (_project_columns_bounded's lax.fori_loop)",
@@ -2446,9 +2509,7 @@ def mesh_rank(rank, tmp, queue):
     the orbax-checkpointed fused run; the results go to ``tmp`` and the
     numbers to ``queue``."""
     import faulthandler
-    import os
     import traceback
-    os.environ["LOCAL_RANK"] = str(rank)
     faulthandler.dump_traceback_later(MESH_TIMEOUT - 30)  # where a hang waits
     say(f"phase 16 rank {rank}: started")
     try:
@@ -2519,22 +2580,54 @@ def check_mesh_launches(launches, who):
                              f"kernel above 0 and {DMA[0]} at 0 expected")
 
 
-def spawn_ranks(target, tmp):
+def rank_entry(target, rank, tmp, queue):
+    """A spawned rank: ``LOCAL_RANK`` set to ``rank`` and, with a card,
+    pinned to the card ``parallel.mesh.local_card`` names (the rule that
+    ``init_distributed`` and ``make_mesh`` follow), then
+    ``target(rank, tmp, queue)``."""
+    import os
+    os.environ["LOCAL_RANK"] = str(rank)
+    import torch
+    if torch.cuda.is_available():
+        from nmf_toolbox_tpu_torch.parallel.mesh import local_card
+        torch.cuda.set_device(local_card(rank))
+    target(rank, tmp, queue)
+
+
+def spawn_ranks(target, tmp, n=2, timeout=MESH_TIMEOUT):
     """{rank: what it put on the queue} from ``target(rank, tmp, queue)``
-    run in two spawned processes.  Each rank is joined (killed past its
-    wait), the queue closed and freed, and the resource tracker that
-    spawning starts stopped, so that no process outlives the phase."""
+    run in ``n`` spawned processes (:func:`rank_entry`), each waited for
+    up to ``timeout`` seconds; once a rank reports an error the others
+    get ERROR_GRACE seconds, and a rank that gave no answer is reported
+    as an error.  Each rank is joined (killed past its wait), the queue
+    closed and freed, and the resource tracker that spawning starts
+    stopped unless other children of this process still use it, so that
+    no process outlives the phase."""
     import gc
     import multiprocessing
     import os
+    import queue as queues
     from multiprocessing import resource_tracker
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=target, args=(r, tmp, queue)) for r in range(2)]
+    procs = [ctx.Process(target=rank_entry, args=(target, r, tmp, queue)) for r in range(n)]
     for p in procs:
         p.start()
     try:
-        return dict(queue.get(timeout=MESH_TIMEOUT) for _ in procs)
+        got = {}
+        while len(got) < n:
+            failed = any("error" in v for v in got.values())
+            try:
+                rank, value = queue.get(timeout=ERROR_GRACE if failed else timeout)
+            except queues.Empty:
+                if not failed:
+                    raise TimeoutError(f"{n - len(got)} rank(s) gave no answer in "
+                                       f"{timeout} s") from None
+                for r in range(n):
+                    got.setdefault(r, {"error": "no answer after another rank failed"})
+                break
+            got[rank] = value
+        return got
     finally:
         for p in procs:
             p.join(30)
@@ -2547,7 +2640,9 @@ def spawn_ranks(target, tmp):
         del queue, procs
         gc.collect()  # the queue's semaphores unregister while the tracker runs
         tracker = resource_tracker._resource_tracker
-        if hasattr(tracker, "_stop"):
+        if multiprocessing.active_children():
+            pass  # other children of this process hold the tracker open
+        elif hasattr(tracker, "_stop"):
             tracker._stop()
         elif getattr(tracker, "_pid", None) is not None:
             os.close(tracker._fd)  # its end of file stops the tracker
@@ -2755,16 +2850,16 @@ def result_equal(torch, a, b):
     return a.n_iters == b.n_iters and all(same(getattr(a, f), getattr(b, f)) for f in a.fields)
 
 
-def rank_inputs(torch):
+def rank_inputs(torch, V_gram=None):
     """The two Gloo ranks' inputs, drawn on the card from seeds in every
     process: the convolutive V of phase 13 with inits, phase 7's V for
     chcnmf, nmfsc's V of phase 14 and constrainednmf on it with 40 %
     unlabeled columns (so both halves hold labeled ones), a planted
     similarity of odd n (symnmf pads it), cmfwisa's complex V and the
-    streamed V, host copies."""
+    streamed V, host copies; phase 7's V redrawn unless given."""
     g = torch.Generator(device="cuda").manual_seed(171)
     rand = lambda *s: torch.rand(s, generator=g, device="cuda")  # noqa: E731
-    x = solver_inputs(torch)
+    x = solver_inputs(torch, V_gram)
     ms, ns, ks = SPARSE_BASE
     labels = np.random.default_rng(17).integers(0, LABEL_CLASSES, ns)
     labels[np.random.default_rng(18).permutation(ns)[: 2 * ns // 5]] = -1
@@ -2822,9 +2917,7 @@ def mesh17_rank(rank, tmp, queue):
     """One of phase 17's two Gloo ranks sharing the card: rank_runs on a
     mesh of two, the results to ``tmp`` and the numbers to ``queue``."""
     import faulthandler
-    import os
     import traceback
-    os.environ["LOCAL_RANK"] = str(rank)
     faulthandler.dump_traceback_later(MESH_TIMEOUT - 30)
     try:
         import torch
@@ -3350,10 +3443,542 @@ def phase18_phased(torch, fk, dk, hk, V_big):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the mesh on four cards, one NCCL rank a card
+# ---------------------------------------------------------------------------
+
+def p19_inputs(torch):
+    """Phase 19's inputs, drawn on this rank's card from seeds, so that
+    every process draws the same: phase 16's (the fused runs, phase 7's V
+    with the gram inits, the sparse V for HALS), phase 17's two-rank set
+    on that V, the weighted KL problem, phase 10's restarts and phase 9's
+    batch with the encoders' dictionaries and phases."""
+    m16 = mesh_inputs(torch)
+    x = rank_inputs(torch, m16[3])
+    rng = np.random.default_rng(19)
+    u = lambda *s: torch.from_numpy(rng.uniform(size=s).astype(np.float32)).cuda()  # noqa: E731
+    mw, nw, kw = WEIGHTED
+    mr, nr, r = RANK_SWEEP
+    S, kr = RANK_SEEDS, 16
+    Vr = (torch.from_numpy(rng.gamma(2.0, 1.0, (mr, r)).astype(np.float32))
+          @ torch.from_numpy(rng.gamma(0.5, 1.0, (r, nr)).astype(np.float32)) + 0.01)
+    B, mb, nb, kb = SERVING
+    _, bases, Vb = serving_batch(torch)
+    T, (T2, P2) = CONV_ENCODE_T, NMF2D_ENCODE_TP
+    x.update(
+        mesh16=m16, V_host=m16[6].cpu().numpy(),
+        Vw=0.1 + 0.9 * u(mw, nw), Mw=(u(mw, nw) < 0.8).float(), Ww=u(mw, kw), Hw=u(kw, nw),
+        Vr=Vr.cuda(), Wr=u(S, mr, kr), Hr=u(S, kr, nr),
+        Vb=Vb, Wb=u(B, mb, kb), Hb=u(B, kb, nb), Hb4=u(B, kb, nb, P2),
+        Wd=torch.from_numpy(bases[0] / np.sqrt((bases[0] ** 2).sum(0))).cuda(),
+        Wc4=u(mb, kb, T) + 0.1, W2=u(mb, kb, T2) + 0.1,
+        Vbc=Vb * torch.exp(1j * (2 * np.pi) * u(B, mb, nb)))
+    return x
+
+
+def p19_runs(x):
+    """Phase 19's solves: name -> (call(mesh), iterations, tolerance
+    against one card, timed).  Full width at ITERS19 iterations (the four
+    timed ones get a warm-up on one card and on each mesh); the rest at
+    phase 17's shapes cut to SMALL_ITERS19 iterations (phase 17: 5), the
+    engines to SMALL_ITERS19 too (phases 9-10: 100).
+
+    A tolerance of None marks an f32 solve whose steps amplify the order
+    of a sum: four ranks sum V H', H H' and the like in another order
+    than one card, and HALS's column sweeps (and their eps floor on a
+    sparse V), seminmf's solve with H H' and the Hoyer projection's
+    thresholds in nmfsc carry that difference far past 1e-4 (a four-card
+    run of these calls measured, against one card: HALS 4.8e-4 in W after
+    10 iterations, 0.78 from NNDSVDA seeds after 5; seminmf 5.8e-4 after 3;
+    nmfsc 4.3e-4 after 10, its cost within 1.2e-7).  Such a run is timed
+    and its gap printed; its f64 twin holds the same call to
+    MESH_RTOL_F64 (HALS from NNDSVDA seeds after 5 iterations: see its
+    entry; its seeds and its first sweep are held)."""
+    import torch
+    import nmf_toolbox_tpu_torch as tt
+    Vf, Wf, Hf, Vg, Wg, Hg, Vl, Wl, Hl = x["mesh16"]
+    full, small = ITERS19, SMALL_ITERS19
+    m, n, k = GRAM
+    one = dict(tolerance=NEVER)
+    f64 = dict(one, dtype=torch.float64)
+    ini = x["ini"]
+    runs = {
+        "nmf fused kl": (lambda msh: tt.nmf(Vf, MAIN[2], divergence="kl", method="fused",
+                                            W_init=Wf, H_init=Hf, maxiter=full, mesh=msh, **one),
+                         full, MESH_RTOL, True),
+        "nmf fused is": (lambda msh: tt.nmf(Vf, MAIN[2], divergence="is", method="fused",
+                                            W_init=Wf, H_init=Hf, maxiter=full, mesh=msh, **one),
+                         full, MESH_RTOL, False),
+        "nmf gram": (lambda msh: tt.nmf(Vg, k, W_init=Wg, H_init=Hg, method="gram",
+                                        maxiter=full, mesh=msh, **one), full, MESH_RTOL, True),
+        "nmf gram nndsvd from a host V": (lambda msh: tt.nmf(
+            x["V_host"], k, init="nndsvd", method="gram", maxiter=full, mesh=msh, **one),
+            full, MESH_RTOL, False),
+        "nmf_hals": (lambda msh: tt.nmf_hals(Vl, k, W_init=Wl, H_init=Hl, maxiter=full,
+                                             mesh=msh, **one), full, None, True),
+        "nmf_hals f64": (lambda msh: tt.nmf_hals(Vl, k, W_init=Wl, H_init=Hl, maxiter=full,
+                                                 mesh=msh, **f64), full, MESH_RTOL_F64, False),
+        # From NNDSVDA's seeds, in f64, four ranks stand 3.5e-8 in W (cost
+        # 7.7e-10) from one card after 5 iterations and 3.4e-8 after 10:
+        # not held.  The seeds are bit-identical to one card's (each rank
+        # seeds from the whole V on its own card) and the first sweep stood
+        # 4.8e-14 from one card (four-card runs): both held, so the gap
+        # grows in sweeps 2-5, from the order of the sweeps' sums.
+        "nndsvda seeds of a host V f64": (lambda msh: nndsvda_seeds(x["V_host"], k, msh),
+                                          0, MESH_RTOL_F64, False),
+        "nmf_hals nndsvda from a host V f64, 1 iteration": (lambda msh: tt.nmf_hals(
+            x["V_host"], k, init="nndsvda", maxiter=1, mesh=msh, **f64), 1, MESH_RTOL_F64,
+            False),
+        "nmf_hals nndsvda from a host V f64": (lambda msh: tt.nmf_hals(
+            x["V_host"], k, init="nndsvda", maxiter=MESH_RANK_ITERS, mesh=msh, **f64),
+            MESH_RANK_ITERS, None, False),
+        f"nmfsc W_sparsity 0.5 H_sparsity 0.6 {m}x{n} r{k}": (lambda msh: tt.nmfsc(
+            Vg, k, W_init=Wg, H_init=Hg, W_sparsity=0.5, H_sparsity=0.6, maxiter=full,
+            mesh=msh, **one), full, None, True),
+        f"nmfsc W_sparsity 0.5 H_sparsity 0.6 {m}x{n} r{k} f64": (lambda msh: tt.nmfsc(
+            Vg, k, W_init=Wg, H_init=Hg, W_sparsity=0.5, H_sparsity=0.6, maxiter=full,
+            mesh=msh, **f64), full, MESH_RTOL_F64, False),
+        f"seminmf {m}x{n} r{k} f64": (lambda msh: tt.seminmf(
+            Vg, k, W_init=2 * ini["W"] - 1, H_init=ini["H"], maxiter=small, mesh=msh, **f64),
+            small, MESH_RTOL_F64, False),
+    }
+    for name in family_calls(tt, Vg, k, ini, small):
+        runs[f"{name} {m}x{n} r{k}"] = (lambda msh, name=name: family_calls(
+            tt, Vg, k, ini, small, mesh=msh)[name](), small,
+            None if name == "seminmf" else MESH_RTOL, False)
+    for name in rank_runs(x, small, None):
+        tol = MESH_RTOL_F64 if name.endswith("f64") else MESH_RTOL
+        runs[name] = (lambda msh, name=name: rank_runs(x, small, msh)[name](), small, tol, False)
+    mw, nw, kw = WEIGHTED
+    mr, nr, r = RANK_SWEEP
+    B, mb, nb, kb = SERVING
+    T, (T2, P2) = CONV_ENCODE_T, NMF2D_ENCODE_TP
+    eng = dict(maxiter=small)
+    runs.update({
+        f"nmf kl weights {mw}x{nw} r{kw}": (lambda msh: tt.nmf(
+            x["Vw"], kw, W_init=x["Ww"], H_init=x["Hw"], weights=x["Mw"], divergence="kl",
+            maxiter=small, mesh=msh, **one), small, MESH_RTOL, False),
+        f"nmf_multiseed kl {mr}x{nr} S{RANK_SEEDS} r16": (lambda msh: tt.nmf_multiseed(
+            x["Vr"], 16, RANK_SEEDS, W_init=x["Wr"], H_init=x["Hr"], divergence="kl",
+            mesh=msh, **eng), small, MESH_RTOL, False),
+        f"nmf_batched B{B} {mb}x{nb} r{kb}": (lambda msh: tt.nmf_batched(
+            x["Vb"], kb, W_init=x["Wb"], H_init=x["Hb"], mesh=msh, **eng),
+            small, MESH_RTOL, False),
+        f"nmf_encode kl B{B}": (lambda msh: tt.nmf_encode(
+            x["Vb"], x["Wd"], H_init=x["Hb"], divergence="kl", mesh=msh, **eng),
+            small, MESH_RTOL, False),
+        f"cnmf_encode kl B{B} T{T}": (lambda msh: tt.cnmf_encode(
+            x["Vb"], x["Wc4"], H_init=x["Hb"], divergence="kl", mesh=msh, **eng),
+            small, MESH_RTOL, False),
+        f"nmf2d_encode B{B} T{T2} P{P2}": (lambda msh: tt.nmf2d_encode(
+            x["Vb"], x["W2"], P2, H_init=x["Hb4"], mesh=msh, **eng), small, MESH_RTOL, False),
+        f"cmfwisa_encode B{B}": (lambda msh: tt.cmfwisa_encode(
+            x["Vbc"], x["Wd"], H_init=x["Hb"], mesh=msh, **eng), small, MESH_RTOL, False),
+    })
+    return runs
+
+
+def nndsvda_seeds(V_host, k, mesh):
+    """The seeds ``nmf_hals(V_host, k, init="nndsvda", dtype=float64,
+    mesh=mesh)`` starts from: NNDSVDA of the whole V in f64 on the run's
+    card (the mesh's device on this rank, else the current card) with the
+    solver's generator (seed 0), as a Result-like object whose cost is
+    the seeds' squared error."""
+    import types
+    import torch
+    from nmf_toolbox_tpu_torch.utils import nndsvd
+    device = mesh.device if mesh is not None else torch.device("cuda", torch.cuda.current_device())
+    V = torch.from_numpy(V_host).to(device, torch.float64)
+    W, H = nndsvd(V, k, generator=torch.Generator().manual_seed(0), variant="nndsvda")
+    err = torch.sum(torch.sub(V, W @ H, out=V).square_())
+    return types.SimpleNamespace(W=W, H=H, cost=[float(err)], n_iters=0)
+
+
+def reduced_mb(name, m, n, k, R, C):
+    """MB each rank reduces an iteration by PERF.md §3's formulas (f32;
+    sums of k or fewer floats left out), on a mesh of R x C ranks (R
+    over V's rows, C over its columns); None for a solve they do not
+    cover."""
+    mk, kn, kk = m // R * k, k * (n // C), k * k
+    by_samples = {"nmf gram": mk + kk, "nmf_hals": mk + kk, "nmf fused kl": mk,
+                  "nmf fused is": 2 * mk}
+    by_features = {"nmf gram": kn + kk, "nmf_hals": kn + kk, "nmf fused kl": kn,
+                   "nmf fused is": 2 * kn}
+    if name not in by_samples:
+        return None
+    floats = (by_samples[name] if C > 1 else 0) + (by_features[name] if R > 1 else 0)
+    return 4 * floats / 1e6
+
+
+def digest(got):
+    """A hash of a result's W, H and cost bits: equal on two ranks only
+    if their results are bit-identical."""
+    import hashlib
+    h = hashlib.sha256()
+    for f in ("W", "H"):
+        if f in got:
+            h.update(np.ascontiguousarray(got[f].numpy()).tobytes())
+    h.update(np.ascontiguousarray(got["cost"]).tobytes())
+    return h.hexdigest()
+
+
+def gaps(got, ref):
+    """The largest relative error of W and H (of their largest entry) and
+    of the cost trace against a reference, as phases 16-17 measure it."""
+    out = {f: max_rel(got[f], ref[f]) for f in ("W", "H") if f in ref}
+    out["cost"] = (float(np.max(np.abs(got["cost"] / ref["cost"] - 1)))
+                   if got["cost"].shape == ref["cost"].shape else float("inf"))
+    return out
+
+
+def collective_times(torch, dist, meshes):
+    """The device ms (CUDA events around ALLREDUCE_REPS calls back to
+    back, after a warm-up) and the host µs a call (the clock read before
+    the synchronise) of: one all_reduce of each size of ALLREDUCE19
+    between the four cards and within each axis of the 2 x 2 mesh; the
+    port's sum_all of a k x k and a k tensor (one flat buffer); the
+    halo of cnmf's T * k-row operand at phase 13's shape (one all_gather
+    of T - 1 columns a rank); and a host-bound step's round trip, 3
+    floats made, summed over the four cards and read back, beside the
+    same step with no sum."""
+    from nmf_toolbox_tpu_torch.parallel import collectives
+    m14, m22 = meshes["1x4"], meshes["2x2"]
+    cases = {}
+    for label, group in {"4 cards": None, "2 cards (2x2 'n' axis)": m22.group("n"),
+                         "2 cards (2x2 'm' axis)": m22.group("m")}.items():
+        for size_name, floats in ALLREDUCE19.items():
+            t = torch.ones(floats, device="cuda")
+            cases[f"all_reduce {label} {size_name}"] = (
+                lambda t=t, group=group: dist.all_reduce(t, group=group))
+    k = GRAM[2]
+    a, b = torch.ones(k, k, device="cuda"), torch.ones(k, device="cuda")
+    cases["sum_all 4 cards, k x k and k floats"] = lambda: collectives.sum_all(m14, a, b)
+    mc, nc, kc, T = CONV
+    H = torch.ones(T * kc, nc // CARDS19, device="cuda")  # cnmf's widest halo operand
+    cases[f"halo 4 cards, {T - 1} columns of {T * kc} rows"] = lambda: collectives.halo(
+        m14, H, T - 1, "left")
+    cases["step and read 4 cards, sum_all of 3 floats"] = lambda: float(
+        collectives.sum_all(m14, torch.ones(3, device="cuda"))[0])
+    cases["step and read, no collective"] = lambda: float(torch.ones(3, device="cuda")[0])
+    out = {}
+    for name, call in cases.items():
+        call()
+        torch.cuda.synchronize()
+        dist.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(ALLREDUCE_REPS):
+            call()
+        end.record()
+        host_us = (time.perf_counter() - t0) * 1e6 / ALLREDUCE_REPS
+        torch.cuda.synchronize()
+        out[name] = {"device_ms": start.elapsed_time(end) / ALLREDUCE_REPS, "host_us": host_us}
+    return out
+
+
+def checkpoint19(torch, x, meshes, tmp):
+    """Orbax checkpoints on each mesh: save_factors_orbax and
+    load_factors_orbax of a fused KL result, every rank writing and
+    reading its blocks, restored bit-identical; run_checkpointed of that
+    run in chunks, straight and crash-resumed, bit-identical to one
+    meshed call."""
+    from nmf_toolbox_tpu_torch import nmf
+    from nmf_toolbox_tpu_torch.parallel.collectives import dtensor_whole
+    from nmf_toolbox_tpu_torch.utils import (load_factors_orbax, run_checkpointed,
+                                             save_factors_orbax)
+    Vf, Wf, Hf = x["mesh16"][:3]
+    k, total, chunk = MAIN[2], CKPT_ITERS, CKPT_CHUNK
+    out = {}
+    for label, mesh in meshes.items():
+        kw = dict(W_init=Wf, H_init=Hf, method="fused", divergence="kl", tolerance=NEVER,
+                  mesh=mesh)
+        one = nmf(Vf, k, maxiter=total, **kw)
+        path = f"{tmp}/save19_{label}"
+        save_ms = wall_ms(torch, lambda: save_factors_orbax(path, one, mesh=mesh,
+                                                            solver="nmf"))[1]
+        back = load_factors_orbax(path, mesh=mesh, solver="nmf")
+        restored = all(torch.equal(dtensor_whole(back[f"{f}_init"]).to(one.W.device),
+                                   getattr(one, f)) for f in ("W", "H"))
+        res, ck_ms = wall_ms(torch, lambda: run_checkpointed(
+            nmf, Vf, k, total_iters=total, chunk=chunk, path=f"{tmp}/ck19_{label}",
+            backend="orbax", **kw))
+        run_checkpointed(nmf, Vf, k, total_iters=total // 2, chunk=chunk,
+                         path=f"{tmp}/crash19_{label}", backend="orbax", **kw)
+        resumed = run_checkpointed(nmf, Vf, k, total_iters=total, chunk=chunk,
+                                   path=f"{tmp}/crash19_{label}", backend="orbax", **kw)
+        out[label] = {"restored_identical": bool(restored),
+                      "chunked_identical": bool(same_result(torch, res, one)),
+                      "resumed_identical": bool(same_result(torch, resumed, one)),
+                      "save_ms": save_ms, "ms_per_iter_chunked": ck_ms / total}
+    return out
+
+
+def mesh19_rank(rank, tmp, queue):
+    """One of phase 19's four NCCL ranks, one a card: every solve of
+    p19_runs on a 1-D mesh of four and on a 2 x 2 mesh (rank 0 also runs
+    each with no mesh on its card, card 0, and measures the error against
+    it), the orbax checkpoints, and the collectives' times; the numbers
+    go to ``queue``."""
+    import faulthandler
+    import traceback
+    faulthandler.dump_traceback_later(TIMEOUT19 - 30)  # where a hang waits
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
+        from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
+        from nmf_toolbox_tpu_torch.ops.kernels import hoyer as hk
+        from nmf_toolbox_tpu_torch.parallel import collectives, init_distributed, make_mesh
+        t0 = time.perf_counter()
+        init_distributed(f"file://{tmp}/rendezvous19", CARDS19, rank, backend="nccl",
+                         timeout=TIMEOUT19)
+        meshes = {"1x4": make_mesh(CARDS19), "2x2": make_mesh(shape=(2, CARDS19 // 2))}
+        out = {"rank": rank, "device": str(meshes["1x4"].device),
+               "current_device": torch.cuda.current_device(), "solves": {}}
+        x = p19_inputs(torch)
+        dist.barrier()
+        out["start_s"] = time.perf_counter() - t0
+
+        def counts():
+            return dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches,
+                                             HOYER[0]: hk.hoyer_project_launches})
+        for name, (call, iters, tol, timed) in p19_runs(x).items():
+            row, ref = {"rtol": tol}, None
+            if rank == 0:
+                if timed:
+                    call(None)
+                res, ms = wall_ms(torch, lambda: call(None))
+                ref = factors(torch, res)
+                row["one_card"] = {"ms_per_iter": ms / max(res.n_iters, 1),
+                                   "n_iters": res.n_iters}
+                del res
+            for label, mesh in meshes.items():
+                if timed:
+                    call(mesh)
+                dist.barrier()
+                zero_fused_counts(fk)
+                dk.kl_phi_dot_ht_dma_launches = hk.hoyer_project_launches = 0
+                calls = collectives.calls
+                res, ms = wall_ms(torch, lambda: call(mesh))
+                got = factors(torch, res)
+                per = max(res.n_iters, 1)
+                cell = {"ms_per_iter": ms / per, "n_iters": res.n_iters,
+                        "collectives_per_iter": (collectives.calls - calls) / per,
+                        "launches": counts(), "digest": digest(got)}
+                if ref is not None:
+                    cell["vs_one_card"] = gaps(got, ref)
+                    cell["n_iters_equal"] = res.n_iters == row["one_card"]["n_iters"]
+                row[label] = cell
+                del res, got
+            out["solves"][name] = row
+            del ref
+            torch.cuda.empty_cache()
+        out["checkpoint"] = checkpoint19(torch, x, meshes, tmp)
+        del x
+        torch.cuda.empty_cache()
+        out["collectives"] = collective_times(torch, dist, meshes)
+        out["rank_s"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+        queue.put((rank, out))
+    except Exception:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def check19(got):
+    """Phase 19's verdicts from the ranks' answers: per solve and mesh,
+    every rank bit-identical to rank 0, rank 0 within the solve's
+    tolerance of one card with the same n_iters, the fused kernels
+    launched on every rank of the fused runs (the dma kernel never) and
+    hoyer_project on every rank of the sparse runs; the checkpoints
+    bit-identical.  Prints a line per solve and mesh, and raises once
+    every line is out if any of them failed."""
+    ranks = [got[r] for r in range(CARDS19)]
+    summary = {"devices": [g["device"] for g in ranks],
+               "start_s": [g["start_s"] for g in ranks],
+               "rank_s": [g["rank_s"] for g in ranks], "solves": {}}
+    if sorted(summary["devices"]) != [f"cuda:{r}" for r in range(CARDS19)]:
+        raise AssertionError(f"phase 19: the ranks did not take one card each: "
+                             f"{summary['devices']}")
+    runs, failures = ranks[0]["solves"], []
+    for name, row in runs.items():
+        tol = row["rtol"]
+        one = row["one_card"]
+        out = {"one_card_ms_per_iter": one["ms_per_iter"], "n_iters": one["n_iters"]}
+        for label in ("1x4", "2x2"):
+            cells = [g["solves"][name][label] for g in ranks]
+            R, C = (1, CARDS19) if label == "1x4" else (2, CARDS19 // 2)
+            shape = MAIN if name.startswith("nmf fused") else GRAM
+            cell = {"vs_one_card": cells[0]["vs_one_card"], "rtol": tol,
+                    "rank_identical": all(c["digest"] == cells[0]["digest"] for c in cells),
+                    "n_iters_equal": cells[0]["n_iters_equal"],
+                    "ms_per_iter": [c["ms_per_iter"] for c in cells],
+                    "collectives_per_iter": cells[0]["collectives_per_iter"],
+                    "reduced_mb_per_iter": reduced_mb(name, *shape, R, C),
+                    "launches": [c["launches"] for c in cells]}
+            out[label] = cell
+            fused = name.startswith("nmf fused")
+            sparse = name.startswith(("nmfsc", "cnmfsc"))
+            launched = all(min(c[k] for k, _ in KERNELS) > 0 and c[DMA[0]] == 0
+                           for c in cell["launches"]) if fused else True
+            projected = all(c[HOYER[0]] > 0 for c in cell["launches"]) if sparse else True
+            quiet = all(not any(c[k] for k, _ in KERNELS) and not c[DMA[0]]
+                        for c in cell["launches"]) if not fused else True
+            gap = max(cell["vs_one_card"].values())
+            allowed = "not held: see p19_runs" if tol is None else f"allowed {tol:g}"
+            say(f"phase 19 {label}, {name}: ranks bit-identical {cell['rank_identical']}; from "
+                f"one card {', '.join(f'{f} {v:.3g}' for f, v in cell['vs_one_card'].items())} "
+                f"relative ({allowed}), n_iters equal {cell['n_iters_equal']}; ms/iter "
+                f"{one['ms_per_iter']:.3f} on one card, "
+                f"{', '.join(f'{v:.3f}' for v in cell['ms_per_iter'])} on the ranks; "
+                f"{cell['collectives_per_iter']:g} collectives per iteration"
+                + (f", {cell['reduced_mb_per_iter']:.2f} MB reduced per iteration"
+                   if cell["reduced_mb_per_iter"] is not None else "")
+                + f"; launches per rank {json.dumps(cell['launches'])}")
+            if not (cell["rank_identical"] and cell["n_iters_equal"]
+                    and (tol is None or gap <= tol) and launched and projected and quiet):
+                failures.append(f"{label} {name}: {json.dumps(cell)}")
+        summary["solves"][name] = out
+    for label in ("1x4", "2x2"):
+        ck = [g["checkpoint"][label] for g in ranks]
+        say(f"phase 19 {label}, orbax save/load of fused KL and run_checkpointed "
+            f"{CKPT_ITERS} iterations in chunks of {CKPT_CHUNK}, straight and crash-resumed, "
+            f"per rank: {json.dumps(ck)}")
+        if not all(c["restored_identical"] and c["chunked_identical"] and c["resumed_identical"]
+                   for c in ck):
+            failures.append(f"{label}: a checkpoint is not bit-identical: {ck}")
+    summary["checkpoint"] = [g["checkpoint"] for g in ranks]
+    summary["collectives"] = [g["collectives"] for g in ranks]
+    for key in ranks[0]["collectives"]:
+        device = [g["collectives"][key]["device_ms"] for g in ranks]
+        host = [g["collectives"][key]["host_us"] for g in ranks]
+        say(f"phase 19 {key}: device ms a call "
+            f"{', '.join(f'{v:.4f}' for v in device)} per rank, host µs a call "
+            f"{', '.join(f'{v:.1f}' for v in host)}")
+    if failures:
+        raise AssertionError("phase 19 failed:\n" + "\n".join(failures))
+    return summary
+
+
+def cli19(torch, V, tmp):
+    """``torchrun --nproc-per-node 4 -m nmf_toolbox_tpu_torch nmf V.npy
+    --k 200 --mesh 4`` on phase 7's V saved as a .npy, from injected inits
+    (``--resume``): every rank exits 0, rank 0 alone writes and prints,
+    the factors within MESH_RTOL of the same command in process on one
+    card, and no process of the command is left after it."""
+    import os
+    from nmf_toolbox_tpu_torch import cli
+    from nmf_toolbox_tpu_torch.utils.checkpoint import save_factors
+    m, n, k = GRAM
+    npy, init = tmp / "V19.npy", tmp / "init19.npz"
+    np.save(npy, V.cpu().numpy())
+    rng = np.random.default_rng(191)
+    save_factors(init, {"W": rng.uniform(size=(m, k)).astype(np.float32),
+                        "H": rng.uniform(size=(k, n)).astype(np.float32)})
+    argv = ["nmf", str(npy), "--k", str(k), "--maxiter", str(ITERS19), "--tolerance",
+            str(NEVER), "--resume", str(init)]
+    root = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root), "PYTHONFAULTHANDLER": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", str(CARDS19), "-m", "nmf_toolbox_tpu_torch",
+                           *argv, "--mesh", str(CARDS19), "--out", str(tmp / "cli19.npz")],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=TIMEOUT19)
+    wall_s = time.perf_counter() - t0
+    left = [pid for pid, cmd in processes_naming(str(npy))]
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 19 CLI: torchrun exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    printed = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    _, ms = wall_ms(torch, lambda: cli.main(argv + ["--out", str(tmp / "one19.npz"), "--quiet"]))
+    with np.load(tmp / "cli19.npz") as a, np.load(tmp / "one19.npz") as b:
+        gap = {f: max_rel(torch.from_numpy(a[f]), torch.from_numpy(b[f])) for f in ("W", "H")}
+    row = {"exit_code": proc.returncode, "lines_printed": len(printed), "wall_s": wall_s,
+           "one_card_in_process_s": ms / 1e3, "vs_one_card": gap, "left_processes": left}
+    say(f"phase 19 CLI torchrun --nproc-per-node {CARDS19} nmf {m}x{n} --k {k} --mesh "
+        f"{CARDS19} --maxiter {ITERS19}: {json.dumps(row)}")
+    if len(printed) != 1 or max(gap.values()) > MESH_RTOL or left:
+        raise AssertionError(f"phase 19 CLI: {json.dumps(row)}")
+    return row
+
+
+def processes_naming(text):
+    """(pid, command line) of every process whose command line holds
+    ``text``, this one left out."""
+    import os
+    out = []
+    for cmdline in pathlib.Path("/proc").glob("[0-9]*/cmdline"):
+        try:
+            cmd = cmdline.read_bytes().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if text in cmd and int(cmdline.parent.name) != os.getpid():
+            out.append((int(cmdline.parent.name), cmd[:200]))
+    return out
+
+
+def phase19_four_cards(torch, V_gram):
+    """The mesh on four cards, one NCCL rank a card: every solve that
+    takes a mesh held against one card, the orbax checkpoints, the
+    collectives' times, the CLI under torchrun.  With fewer cards, one line
+    that says so."""
+    import tempfile
+    count = torch.cuda.device_count()
+    if count < CARDS19:
+        say(f"phase 19 did not run: {count} card{'' if count == 1 else 's'}; the "
+            f"four-card mesh needs {CARDS19}")
+        return None
+    t0 = time.perf_counter()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60)
+    say(f"phase 19 nvidia-smi topo -m (exit {topo.returncode}):\n"
+        f"{(topo.stdout + topo.stderr).rstrip()}")
+    links = subprocess.run(["nvidia-smi", "nvlink", "--status"], capture_output=True,
+                           text=True, timeout=60)
+    speeds = {}  # card -> the speed of each of its NVLink links
+    for line in links.stdout.splitlines():
+        if line.startswith("GPU "):
+            speeds[line.split(":")[0]] = []
+        elif "Link " in line and speeds:
+            speeds[list(speeds)[-1]].append(line.split(":", 1)[1].strip())
+    say(f"phase 19 nvidia-smi nvlink --status (exit {links.returncode}): " + "; ".join(
+        f"{gpu}: {len(v)} links, {', '.join(sorted(set(v)))} each" for gpu, v in speeds.items()))
+    peers = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(count)]
+             for i in range(count)]
+    say(f"phase 19 peer access between the cards (torch.cuda.can_device_access_peer): {peers}")
+    say(f"phase 19 cards:\n{card()}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = spawn_ranks(mesh19_rank, tmp, n=CARDS19, timeout=TIMEOUT19)
+        failed = {r: g["error"] for r, g in got.items() if "error" in g}
+        if failed:
+            raise AssertionError("phase 19 ranks failed:\n" + "\n".join(
+                f"rank {r}:\n{e}" for r, e in failed.items()))
+        summary = check19(got)
+        summary["cli"] = cli19(torch, V_gram, pathlib.Path(tmp))
+    summary["phase_s"] = time.perf_counter() - t0
+    say(f"phase 19 wall time {summary['phase_s']:.1f} s")
+    say(f"phase 19 {json.dumps(summary)}")
+    return summary
+
+
 def main():
     import torch
     phase0_device(torch)
     phase1_build()
+    if sys.argv[1:] == ["--phase", "19"]:
+        m, n, k = GRAM
+        g = torch.Generator(device="cuda").manual_seed(0)
+        V = 0.05 + 0.95 * torch.rand((m, n), generator=g, device="cuda")
+        if phase19_four_cards(torch, V) is None:
+            raise SystemExit("phase 19 only: fewer than four cards")
+        say("phase 19 only: ok")
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: chip_smoke.py [--phase 19]; got {sys.argv[1:]}")
     from nmf_toolbox_tpu_torch import nmf, nmf_hals
     from nmf_toolbox_tpu_torch.ops.kernels import _build
     from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
@@ -3417,7 +4042,15 @@ def main():
     hoyer_stats = phase18_hoyer_kernel(torch, hk)
     phased = phase18_phased(torch, fk, dk, hk, V)
     say(f"phase 18 wall time {time.perf_counter() - t18:.1f} s")
+    four = phase19_four_cards(torch, V)
     del V
+
+    def mesh_launches(solve, name):
+        """A kernel's launches on each rank in phase 19's 1x4 run of a
+        solve; None where phase 19 did not run."""
+        if four is None:
+            return None
+        return [c[name] for c in four["solves"][solve]["1x4"]["launches"]]
 
     def per_iter(name):
         """Launches per fused iteration, counted in phase 3's runs."""
@@ -3437,6 +4070,7 @@ def main():
             "ms_is": s["ms_is"], "plain_ms_is": s["plain_ms_is"],
             "bound_ms_is": s["bound_ms_is"], "bound_by_is": s["bound_by_is"],
             "tflops": s["tflops"], "tflops_is": s["tflops_is"],
+            "four_card_launches_per_rank": mesh_launches("nmf fused kl", name),
         })
     name, replaces, source = DMA
     kernels.append({
@@ -3461,6 +4095,8 @@ def main():
         "host_us": hoyer_stats["host_us"], "plain_ms": hoyer_stats["plain_ms"],
         "bound_ms": hoyer_stats["bound_ms"], "bound_by": hoyer_stats["bound_by"],
         "library_ms": None,
+        "four_card_launches_per_rank": mesh_launches(
+            f"nmfsc W_sparsity 0.5 H_sparsity 0.6 {GRAM[0]}x{GRAM[1]} r{GRAM[2]}", name),
     })
     say(card())  # again, where the tail of a long log keeps it
     say(json.dumps({"kernels": kernels}))

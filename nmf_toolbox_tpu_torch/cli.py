@@ -453,6 +453,20 @@ def _writer() -> bool:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if not args.mesh:
+        return _main(args)
+    # A --mesh run tears down the process group it joined, and only that
+    # one: a caller's group outlives the command.
+    import torch.distributed as dist
+    joined = dist.is_initialized()
+    try:
+        return _main(args)
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args):
     refusal = _refusal(args)
     if refusal:
         print(f"error: {refusal}", file=sys.stderr)

@@ -148,34 +148,41 @@ def ingest_rescaled(V, dtype, device):
     return Vd / torch.tensor(hi, dtype=dtype, device=device)
 
 
+def concrete_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with an index: ``"cuda"`` names the
+    current card, which a tensor made there reports as ``cuda:N``, so
+    only the indexed form compares equal to a tensor's device."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def resolve_device(V, device, mesh=None) -> torch.device:
     """The run's device: a tensor's own device, else ``device``, else the
-    card.  A tensor on another device than the one named is an error,
-    never a silent copy; an array with no ``device`` and no card raises,
-    never a silent run on the CPU.  Under a ``mesh`` it is the mesh's
-    device for this rank, whatever V's (each rank copies its own block
-    there); a ``device`` of another type is an error."""
+    card (the current one: :func:`concrete_device`).  A tensor on another
+    device than the one named is an error, never a silent copy; an array
+    with no ``device`` and no card raises, never a silent run on the CPU.
+    Under a ``mesh`` it is the mesh's device for this rank, whatever V's
+    (each rank copies its own block there); a ``device`` that names
+    another is an error."""
     if mesh is not None:
-        d = None if device is None else torch.device(device)
-        if d is not None and (d.type != mesh.device.type
-                              or d.index not in (None, mesh.device.index)):
+        if device is not None and concrete_device(device) != mesh.device:
             raise ValueError(f"device={device!r} but the mesh's device on this "
                              f"rank is {mesh.device}; drop device=")
         return mesh.device
     if torch.is_tensor(V):
-        d = None if device is None else torch.device(device)
-        if d is not None and (d.type != V.device.type
-                              or d.index not in (None, V.device.index)):
+        if device is not None and concrete_device(device) != V.device:
             raise ValueError(f"V lies on {V.device} but device={device!r} "
                              "was given; move V or drop device=")
         return V.device
     if device is not None:
-        return torch.device(device)
+        return concrete_device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("nmf_toolbox_tpu_torch runs on a CUDA card unless "
                            "told otherwise and finds none; pass device=\"cpu\" "
                            "to run on the CPU")
-    return torch.device("cuda")
+    return concrete_device("cuda")
 
 
 def staging_device(V, device, mesh) -> torch.device:

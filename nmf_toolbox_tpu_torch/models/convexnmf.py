@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import (Result, as_tensor, common_scalars, merge_config,
+from ..core import (Result, as_tensor, common_scalars, concrete_device, merge_config,
                     resolve_device, resolve_dtype, staging_device)
 from ..ops import loop as looplib
 from ..ops.gram import pos_neg_split
@@ -48,9 +48,7 @@ def row_gram(V, r0: int, r1: int, device):
     """Rows r0 .. r1 of V'V, (r1 - r0, n) on ``device``, from the whole V:
     V[:, r0:r1]' V, with V's columns moved in chunks when V lies
     elsewhere."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:  # "cuda" names the current card
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = concrete_device(device)
     if V.device == device:
         return V[:, r0:r1].T @ V
     m, n = V.shape

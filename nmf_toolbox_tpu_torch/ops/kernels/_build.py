@@ -9,8 +9,9 @@ in :func:`build_dir` (``nmf_toolbox_tpu_torch/_build/``, or the user's
 ``~/.cache/nmf_toolbox_tpu_torch/_build`` where an installed package
 cannot be written) under a name that hashes the sources and the flags,
 so an edited source is never served a stale build.  A build writes to
-temporary files and renames the library into place, so processes that
-build at once do not see each other's half-written library.
+files named for its process and renames the library and its log into
+place, under a lock that processes starting at once take in turn, so
+none of them loads or reads a half-written file.
 
 ``nvcc`` is found through ``CUDA_HOME``, then ``PATH``, then the
 toolkit's default prefix ``/usr/local/cuda``; without it :func:`load`
@@ -19,6 +20,7 @@ raises.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -120,14 +122,26 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile every ``csrc/*.cu`` unless this build exists; nvcc's
     output (each kernel's registers, shared memory and spills) goes to a
-    ``.log`` beside the library."""
+    ``.log`` beside the library.  Processes that start at once (the ranks
+    of a mesh) take turns on a lock beside the library, so one builds and
+    the others load its build; a process that dies releases the lock."""
     out = library_path()
     if out.is_file():
         return out
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.is_file():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path):
+    """Build the library at ``out``: objects, library and log under names
+    of this process, the library and then its log renamed into place."""
     nvcc = nvcc_path()
     tag = f"{out.stem}.{os.getpid()}"
     objs = [out.parent / f"{tag}.{src.stem}.o" for src in sources()]
-    tmp = out.with_name(f"{tag}.tmp")
+    tmp, tmp_log = out.with_name(f"{tag}.tmp"), out.with_name(f"{tag}.log")
     link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     procs, log = [], []
     try:
@@ -155,8 +169,8 @@ def build() -> Path:
                 proc.wait()
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
-        out.with_suffix(".log").write_text("\n".join(log))
-    return out
+        tmp_log.write_text("\n".join(log))
+        os.replace(tmp_log, out.with_suffix(".log"))
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -78,15 +78,14 @@ def hoyer_project_reference(S, k1, k2, passes: int, valid: int | None = None):
     rest of the budget would change nothing, and the check reads no
     device); on a card it runs the whole budget."""
     N = _check(S, passes, valid)
-    v, zero, nz, k1, k2 = projection.start(S, k1, k2, valid, N)
+    v, zero, nz, k1, k2 = projection.start(S, k1, k2, valid)
     zero_t = torch.zeros((), dtype=S.dtype, device=S.device)
     done = torch.zeros(S.shape[:-1], dtype=torch.bool, device=S.device)
     iters = torch.zeros(S.shape[:-1], dtype=torch.int32, device=S.device)
     for _ in range(min(int(passes), N + 1)):
         if S.device.type == "cpu" and bool(torch.all(done)):
             break
-        v, zero, nz, done, iters = projection._pass(
-            v, zero, nz, done, iters, k1, k2, N, zero_t, projection.local_sums)
+        v, zero, nz, done, iters = projection._pass(v, zero, nz, done, iters, k1, k2, zero_t)
     return v, done, iters
 
 

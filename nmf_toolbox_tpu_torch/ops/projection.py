@@ -10,9 +10,10 @@ passes).  Here all vectors are projected together, each frozen once it
 is done, and the loop stops when every vector is done or after N + 1
 passes, the JAX package's rule.  On a card that loop is one launch of
 the hand-written kernel of ``ops/kernels/hoyer.py``, which reads nothing
-back.  Elsewhere it runs here: a pass over a frozen vector is an exact
+back.  On the CPU it runs here: a pass over a frozen vector is an exact
 no-op, so the loop runs its passes in groups and reads "all done" on the
-host once per group, bit-identical to reading after every pass.
+host once per group, bit-identical to reading after every pass.  Vectors
+that a mesh shards are gathered whole first, on every device alike.
 
 The vectors lie along the LAST axis (:func:`project_rows`); leading
 axes are batch, which is how a line search projects all its candidates
@@ -29,7 +30,7 @@ import math
 import torch
 
 from ..core import as_tensor, host_read, resolve_device, resolve_dtype
-from ..parallel.collectives import sum_axis
+from ..parallel.collectives import gather_factor
 from ..parallel.mesh import block_offset
 from .kernels import hoyer
 
@@ -47,32 +48,37 @@ def project_rows(S, k1, k2, valid: int | None = None, mesh=None, axis=None):
     loop pre-zeroed, so every sum divides by the true length.
 
     ``mesh``: the vectors' last axis is sharded over the mesh axis
-    ``axis`` and S holds this rank's entries; every per-vector sum (the
-    L1 and L2 sums, the count of zeroed entries, the midpoint's norm, the
-    count of negative entries) goes through that axis' sum, ``valid``
-    counts global entries, and every rank reads the same "all done".
+    ``axis`` and S holds this rank's entries; over two or more ranks the
+    vectors are gathered whole (one ``all_gather``), every rank projects
+    them alike and keeps its block, in S's layout; ``valid`` counts the
+    whole vector's entries.
 
-    A CUDA tensor whose vectors are whole on this rank (no mesh, or one
-    rank on ``axis``) is projected by one launch of the kernel of
+    A CUDA tensor is projected by one launch of the kernel of
     ``ops/kernels/hoyer.py`` with a budget of N + 1 passes, reading
-    nothing back.  CPU tensors, and vectors sharded over two or more
-    ranks (whose sums need collectives), run the passes here, reading
-    "all done" once per group of ``PASSES_PER_READ``.
+    nothing back.  CPU tensors run the passes here, reading "all done"
+    once per group of ``PASSES_PER_READ``.
     """
     if mesh is not None and axis is None:
         raise ValueError("project_rows: a mesh needs the axis its vectors are sharded over")
     n_loc = S.shape[-1]
-    N = n_loc * (1 if mesh is None else mesh.size(axis))
-    if S.device.type == "cuda" and N == n_loc:
+    sharded = mesh is not None and mesh.size(axis) > 1
+    whole = gather_factor(mesh, S, axis, S.ndim - 1) if sharded else S
+    v, iters = _project_whole(whole, k1, k2, valid)
+    if sharded:  # this rank's block, in S's layout
+        v = torch.empty_like(S).copy_(v.narrow(-1, block_offset(mesh, n_loc, axis), n_loc))
+    return v, iters
+
+
+def _project_whole(S, k1, k2, valid):
+    """:func:`project_rows` of vectors that lie whole in S."""
+    N = S.shape[-1]
+    if S.device.type == "cuda":
         # nmf_toolbox_tpu/ops/projection.py's while_loop (:55-58,89) as one
         # launch: N + 1 passes at most, each vector stopping once done.
         v, _, iters = hoyer.hoyer_project(S, k1, k2, N + 1, valid)
         return v, iters
 
-    def total(*xs):  # per-vector sums over every rank's entries
-        return sum_axis(mesh, axis, *xs)
-
-    v, zero, nz, k1, k2 = start(S, k1, k2, valid, N, block_offset(mesh, n_loc, axis), total)
+    v, zero, nz, k1, k2 = start(S, k1, k2, valid)
     zero_t = torch.zeros((), dtype=S.dtype, device=S.device)
     done = torch.zeros(v.shape[:-1], dtype=torch.bool, device=S.device)
     iters = torch.zeros(v.shape[:-1], dtype=torch.int32, device=S.device)
@@ -81,8 +87,7 @@ def project_rows(S, k1, k2, valid: int | None = None, mesh=None, axis=None):
     j = 0
     while j < N + 1:
         for _ in range(min(group, N + 1 - j)):
-            v, zero, nz, done, iters = _pass(v, zero, nz, done, iters, k1, k2, N,
-                                             zero_t, total)
+            v, zero, nz, done, iters = _pass(v, zero, nz, done, iters, k1, k2, zero_t)
         j += group
         if host_read(torch.all(done)):
             break
@@ -105,42 +110,33 @@ def project_rows_bounded(S, k1, k2, passes: int):
     return v, done
 
 
-def local_sums(*xs):
-    """:func:`~nmf_toolbox_tpu_torch.parallel.collectives.sum_axis` with
-    no mesh: the sums as they are."""
-    return xs[0] if len(xs) == 1 else xs
-
-
-def start(S, k1, k2, valid, N, offset=0, total=local_sums):
+def start(S, k1, k2, valid):
     """The state before the first pass: ``(v, zero, nz, k1, k2)``, v on
     the sum hyperplane (projfunc.m:22), the zero mask, each vector's count
     of zeroed entries and the targets broadcast over the batch.  Entries
-    at or past ``valid`` (global index: this rank's block starts at
-    ``offset``) start zeroed and the step divides by ``valid``; ``total``
-    sums per vector over every rank's entries."""
+    at or past ``valid`` start zeroed and the step divides by ``valid``."""
     dt, dev = S.dtype, S.device
-    batch = S.shape[:-1]
+    batch, N = S.shape[:-1], S.shape[-1]
     k1 = torch.as_tensor(k1, dtype=dt, device=dev).expand(batch)
     k2 = torch.as_tensor(k2, dtype=dt, device=dev).expand(batch)
     if valid is None or valid >= N:
-        v = S + ((k1 - total(torch.sum(S, dim=-1))) / N)[..., None]
+        v = S + ((k1 - torch.sum(S, dim=-1)) / N)[..., None]
         zero = torch.zeros(S.shape, dtype=torch.bool, device=dev)
         nz = torch.zeros(batch, dtype=dt, device=dev)
     else:
         zero_t = torch.zeros((), dtype=dt, device=dev)
-        pad = torch.arange(offset, offset + S.shape[-1], device=dev) >= valid
+        pad = torch.arange(N, device=dev) >= valid
         Sm = torch.where(pad, zero_t, S)
         v = torch.where(pad, zero_t,
-                        Sm + ((k1 - total(torch.sum(Sm, dim=-1))) / valid)[..., None])
+                        Sm + ((k1 - torch.sum(Sm, dim=-1)) / valid)[..., None])
         zero = pad.expand(S.shape)
         nz = torch.full(batch, float(N - valid), dtype=dt, device=dev)
     return v, zero, nz, k1, k2
 
 
-def _pass(v, zero, nz, done, iters, k1, k2, N, zero_t, total):
+def _pass(v, zero, nz, done, iters, k1, k2, zero_t):
     """One projection pass (projfunc.m:28-55); frozen vectors unchanged.
-    ``nz`` counts each vector's zeroed entries; ``total`` sums per vector
-    over every rank's entries, in two collectives per pass under a mesh."""
+    ``nz`` counts each vector's zeroed entries."""
     # Projection to the L2 sphere along the hyperplane (projfunc.m:31-38):
     # v + alpha w with ||v + alpha w||^2 = k2, w = v - midpoint.  With
     # v = midpoint + w, b = 2(a + s) and c = a + 2s + ||midpoint||^2 - k2
@@ -151,10 +147,11 @@ def _pass(v, zero, nz, done, iters, k1, k2, N, zero_t, total):
     # (a line search's first trials), and the clamp then returns the
     # hyperplane's centre; this form keeps the clamp (MATLAB's
     # real(sqrt(negative)) = 0) without the cancellation.
+    N = v.shape[-1]
     midpoint = torch.where(zero, zero_t, (k1 / (N - nz))[..., None])
     w = v - midpoint
-    a, s, mm = total(torch.sum(w * w, dim=-1), torch.sum(w * midpoint, dim=-1),
-                     torch.sum(midpoint * midpoint, dim=-1))
+    a, s, mm = (torch.sum(w * w, dim=-1), torch.sum(w * midpoint, dim=-1),
+                torch.sum(midpoint * midpoint, dim=-1))
     q = k2 - mm
     disc = torch.clamp_min(s * s + a * q, 0.0)
     beta = (-s + torch.sqrt(disc)) / a
@@ -165,9 +162,9 @@ def _pass(v, zero, nz, done, iters, k1, k2, N, zero_t, total):
     # negative (projfunc.m:40-44).
     zero_new = zero | (v_proj <= 0)
     v_cl = torch.where(zero_new, zero_t, v_proj)
-    n_neg, nz2, s_cl = total(torch.sum(~(v_proj >= 0), dim=-1, dtype=v.dtype),
-                             torch.sum(zero_new, dim=-1, dtype=v.dtype),
-                             torch.sum(v_cl, dim=-1))
+    n_neg = torch.sum(~(v_proj >= 0), dim=-1, dtype=v.dtype)
+    nz2 = torch.sum(zero_new, dim=-1, dtype=v.dtype)
+    s_cl = torch.sum(v_cl, dim=-1)
     ok = n_neg == 0
     v_re = v_cl + ((k1 - s_cl) / (N - nz2))[..., None]
     v_re = torch.where(zero_new, zero_t, v_re)

@@ -36,6 +36,13 @@ SAMPLE_AXIS = "n"   # data-parallel over samples (columns of V)
 FEATURE_AXIS = "m"  # feature-parallel over rows of V
 
 
+def local_card(rank: int) -> int:
+    """The card a rank's process takes: ``LOCAL_RANK`` (torchrun's index
+    of the process on its host), else ``rank``, modulo the cards the
+    host has."""
+    return int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count()
+
+
 class Mesh:
     """A 1-D ``("n",)`` or 2-D ``("m", "n")`` mesh of ranks, one device
     each.  ``device`` is this rank's device (``cuda:{LOCAL_RANK %
@@ -49,9 +56,7 @@ class Mesh:
         self.axis_names = tuple(device_mesh.mesh_dim_names)
         self.shape = dict(zip(self.axis_names, device_mesh.mesh.shape))
         if device_mesh.device_type == "cuda":
-            local = int(os.environ.get("LOCAL_RANK",
-                                       torch.distributed.get_rank()))
-            self.device = torch.device("cuda", local % torch.cuda.device_count())
+            self.device = torch.device("cuda", local_card(torch.distributed.get_rank()))
         else:
             self.device = torch.device(device_mesh.device_type)
 
@@ -120,8 +125,7 @@ def make_mesh(n_devices: int | None = None, *, shape=None,
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
     if device_type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
-        torch.cuda.set_device(local % torch.cuda.device_count())
+        torch.cuda.set_device(local_card(dist.get_rank()))
     # The axis groups are made here, every rank making every group in the
     # same order, and handed to DeviceMesh: DeviceMesh's own group set-up
     # hung with two Gloo ranks on one card (torch 2.11).
@@ -283,7 +287,7 @@ def init_distributed(coordinator_address=None, num_processes=None,
     ``host:port`` (or any ``init_method`` URL such as ``file://...``),
     ``num_processes`` the world size and ``process_id`` this rank.
     ``backend``: NCCL when a card is present, Gloo otherwise.  Under NCCL
-    the process takes the card ``LOCAL_RANK % device_count``.  Other
+    the process takes the card :func:`local_card` names.  Other
     keyword arguments (``timeout=`` in seconds or as a ``timedelta``) go
     to ``torch.distributed.init_process_group``.
     """
@@ -304,7 +308,6 @@ def init_distributed(coordinator_address=None, num_processes=None,
     if timeout is not None:
         kwargs["timeout"] = timeout
     if backend == "nccl":
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        torch.cuda.set_device(local % torch.cuda.device_count())
+        torch.cuda.set_device(local_card(rank))
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank, **kwargs)

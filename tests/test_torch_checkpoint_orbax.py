@@ -98,9 +98,9 @@ def test_async_save_then_load(tmp_path):
     np.testing.assert_array_equal(raw["W"], host(res.W))
 
 
-def _checkpointed(V, path, backend, total_iters, chunk, **kw):
+def _checkpointed(V, path, backend, total_iters, chunk, kind="1d", **kw):
     res = run_checkpointed(tt.nmf, V, 4, total_iters=total_iters, chunk=chunk,
-                           path=path, backend=backend, mesh=mesh_of("1d"), **kw)
+                           path=path, backend=backend, mesh=mesh_of(kind), **kw)
     return host(res.W), host(res.H), np.asarray(res.cost), res.n_iters
 
 
@@ -131,6 +131,26 @@ def test_run_checkpointed_orbax_crash_resume(ranks, tmp_path):
     assert res[3] == 30
     want = jt.nmf(V, 4, maxiter=30, mesh=jmake_mesh(4), **kw)
     np.testing.assert_allclose(res[0], np.asarray(want.W), atol=1e-10)
+
+
+@pytest.mark.parametrize("case", ["fused kl f32", "gram f64"])
+def test_run_checkpointed_orbax_crash_resume_2x2(ranks, tmp_path, case):
+    """chip_smoke.py phase 19's checkpoint on the 2 x 2 mesh: a run that
+    crashes after 10 of 20 iterations and resumes from its directory is
+    bit-identical to one uninterrupted call on the same mesh."""
+    V, W0, H0 = _problem(6)
+    if case == "fused kl f32":
+        V, W0, H0 = (x.astype(np.float32) for x in (V, W0, H0))
+        kw = dict(W_init=W0, H_init=H0, tolerance=1e-30, dtype=np.float32,
+                  method="fused", divergence="kl")
+    else:
+        kw = dict(W_init=W0, H_init=H0, tolerance=1e-30, dtype=np.float64, method="gram")
+    p = str(tmp_path / "run_orbax")
+    ranks.run(_checkpointed, V, p, "orbax", 10, 5, kind="2d", **kw)  # the run "crashes" here
+    res = same_on_ranks(ranks.run(_checkpointed, V, p, "orbax", 20, 5, kind="2d", **kw))
+    ref = ranks.solve("nmf_toolbox_tpu_torch.nmf", V, 4, mesh="2d", maxiter=20, **kw)
+    for got, want in zip(res, (ref["W"], ref["H"], ref["cost"], ref["n_iters"])):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_auto_backend_selects_orbax_for_mesh_dir(ranks, tmp_path):

@@ -280,3 +280,63 @@ def _identical(a, b, where):
         np.testing.assert_array_equal(a, b, err_msg=where)
     else:
         assert a == b, (where, a, b)
+
+
+# ---------------------------------------------------------------------------
+# Targets of chip_smoke.spawn_ranks: target(rank, tmp, queue) in a fresh
+# spawned process that has joined no group; each puts (rank, value).
+# ---------------------------------------------------------------------------
+
+def gloo_sum(rank, tmp, queue):
+    """Join a Gloo group of four through a ``file://`` rendezvous in
+    ``tmp``, sum the ranks and leave it; this process' pid, its
+    ``LOCAL_RANK`` and the sum."""
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", world_size=4,
+                            rank=rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    t = torch.tensor([float(rank)])
+    dist.all_reduce(t)
+    dist.destroy_process_group()
+    queue.put((rank, {"pid": os.getpid(), "local_rank": os.environ["LOCAL_RANK"],
+                      "sum": float(t)}))
+
+
+def fail_on_two(rank, tmp, queue):
+    """Rank 2 reports an error, the others their pid."""
+    queue.put((rank, {"error": "rank 2 failed"} if rank == 2 else {"pid": os.getpid()}))
+
+
+def cli_own_group(rank, tmp, queue):
+    """``cli.main`` as a torchrun rank of two (the environment torchrun
+    sets, the port in ``tmp/port``, the arguments in ``tmp/argv.json``):
+    the exit code and whether a process group is left after it."""
+    import json
+    import pathlib
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    os.environ.update(WORLD_SIZE="2", RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=pathlib.Path(tmp, "port").read_text())
+    argv = json.loads(pathlib.Path(tmp, "argv.json").read_text())
+    rc, _ = run_cli(argv + ["--out", f"{tmp}/own{rank}.npz"])
+    queue.put((rank, {"rc": rc, "initialized_after": dist.is_initialized()}))
+
+
+def cli_kept_group(argv):
+    """Rank side: ``cli.main`` inside the caller's process group; the
+    exit code and whether that group is still there after it."""
+    import torch.distributed as dist
+    rc, _ = run_cli(argv)
+    return rc, dist.is_initialized()
+
+
+def build_library(rank, tmp, queue):
+    """``_build.build`` with the fake ``nvcc`` under ``tmp/cuda/bin`` and
+    the build directory ``tmp/build``: the library's path and bytes."""
+    import pathlib
+    from nmf_toolbox_tpu_torch.ops.kernels import _build
+    os.environ["CUDA_HOME"] = f"{tmp}/cuda"
+    _build.PKG_BUILD_DIR = _build.CACHE_BUILD_DIR = pathlib.Path(tmp, "build")
+    out = _build.build()
+    queue.put((rank, {"path": str(out), "bytes": out.read_bytes()}))
