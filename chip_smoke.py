@@ -13,8 +13,14 @@ on card 0 and phase 19 alone (four cards), and ends with the line
 Phases, one line each; any failure raises and the script exits non-zero
 without printing the last line:
 
-0. device check (no CUDA device: exit 1), the card's name and power
-   limit from nvidia-smi, TF32 off for matmuls and cuDNN;
+0. before this process first touches CUDA, one bounded probe of the
+   cards in a subprocess (``utils/deviceprobe.probe_auto(no_wait=True)``:
+   on every card an allocation, an elementwise op and a synchronise,
+   within its timeout); a dead, hung or absent card ends the run with a
+   non-zero exit and the probe's words, with no CPU path.  Then the
+   probe's verdict, card count and seconds, the device check (no CUDA
+   device: exit 1), the card's name and power limit from nvidia-smi,
+   TF32 off for matmuls and cuDNN;
 1. build the CUDA kernels from csrc/ with nvcc; each kernel's registers
    and spills (none allowed in the tensor-core kernels), and for every
    instantiation of the tensor-core kernels (phi_dot_ht, wt_dot_phi and
@@ -49,6 +55,22 @@ without printing the last line:
    1000x500 rank 25 over 200 iterations, within 1e-5 relative; the port
    gets NumPy arrays and no ``device=``, so its factors (and an NNDSVD
    seed of the same V) must land on the card;
+5b. the card's matmul numerics (seconds): with
+   ``torch.backends.cuda.matmul.fp32_precision = "tf32"`` (restored after),
+   the card's 1024x1024x1024 f32 product of standard normal operands
+   against the CPU's, emulated (``utils/debug.emulate_card_matmul_numerics``)
+   and plain: the emulated product within 1e-5 of the card's and the
+   plain one more than 1e-4 from it (max |difference| / max |entry|,
+   tests/test_tpu_emulation.py's two thresholds); the products with each
+   TF32 rounding (nearest-even, nearest-away, toward zero) printed beside
+   them; every member of the matmul family the emulation models (``@``,
+   ``mm``, ``addmm``, ``bmm``, ``einsum``, and the GEMVs
+   ``mv``, ``addmv``, a vector operand, one row or one column out) at
+   512x512x512, emulated within 1e-5 of the card's; printed, not gated:
+   the fused kernels' products at 300x700 k=40 against their plain
+   versions under the emulation (3xTF32), and BASELINE #1 (1000x500 r25,
+   200 iterations, gram) on the card in TF32 and on the CPU emulated and
+   plain, each against f64;
 6. the W-phase comparison (benchmarks/pallas_compare.py's op and
    shapes): (V / (W H)) @ H' as the plain composition, phi_dot_ht and
    kl_phi_dot_ht_dma (with the tier that ran), ms by CUDA events, against
@@ -273,8 +295,8 @@ without printing the last line:
    mesh raises ValueError.  The phase prints its wall time.
 
 19. the mesh on four cards (~2 min), where ``torch.cuda.device_count()``
-   is at least 4 (else one line: "did not run", with the card count):
-   the links (``nvidia-smi topo -m``, ``nvidia-smi nvlink --status``,
+   is at least 4 (else one line: "did not run", with the card count),
+   after a check that phase 0's probe counted as many live cards: the links (``nvidia-smi topo -m``, ``nvidia-smi nvlink --status``,
    peer access), then four ranks spawned by the script, one NCCL rank a
    card (rank r on card r), each on ``make_mesh(4)`` and on
    ``make_mesh(shape=(2, 2))``, running at full width, 10 iterations:
@@ -417,6 +439,10 @@ REL_TOL = 1e-4        # tests/test_pallas.py, f32 path
 SOLVER_RTOL = 2e-3    # tests/test_pallas.py::test_fused_solver_matches_naive
 ORACLE_RTOL = 1e-5    # bench.py objective check
 HALS_ORACLE_RTOL = 1e-4  # f32 HALS vs f64 HALS objective, 50 sweeps
+EMULATED_TOL = 1e-5   # emulated vs the card's TF32 product (tests/test_tpu_emulation.py)
+PLAIN_MIN = 1e-4      # plain f32 vs the card's TF32 product: the emulation is no no-op
+NUMERICS_SHAPE = 1024  # phase 5b's product, n x n x n
+FAMILY_SHAPE = 512    # phase 5b's matmul family, n x n x n
 BF16_RTOL = 1e-2      # bf16-stored V vs f32 V, final gram-path cost
 ENGINE_RTOL = 1e-4    # batched engines vs single nmf, f32 cost traces
 GRAM_SLACK = 8 * float(np.finfo(np.float32).eps)  # of ||V||^2, euclidean traces
@@ -552,7 +578,27 @@ def profile_device_ms(torch, run, iters):
             "launches_per_iter_by_kernel": {k: counts[k] for k in top}}
 
 
-def phase0_device(torch):
+def phase0_probe():
+    """The bounded probe of the cards, run before this process touches
+    CUDA: a card that hangs or no longer computes stops the run here, in
+    the probe's subprocess, and not in a CUDA call of this process that
+    nothing could end.  Exits non-zero unless the verdict is a live card."""
+    from nmf_toolbox_tpu_torch.utils import deviceprobe
+    t0 = time.perf_counter()
+    platform, count = deviceprobe.probe_auto(no_wait=True)
+    seconds = time.perf_counter() - t0
+    if platform != "cuda" or count < 1:
+        raise SystemExit(f"chip_smoke: the device probe found no live CUDA card "
+                         f"(verdict {platform}, {count} cards, {seconds:.1f} s; the "
+                         "probe's words are above on stderr); no CPU path")
+    return {"verdict": platform, "count": count, "seconds": seconds}
+
+
+def phase0_device(torch, probe):
+    say(f"phase 0 probe: {probe['verdict']}, {probe['count']} card"
+        f"{'' if probe['count'] == 1 else 's'}, {probe['seconds']:.2f} s "
+        "(utils/deviceprobe.probe_auto(no_wait=True), before this process "
+        "touched CUDA)")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
@@ -834,6 +880,98 @@ def phase5_objective(torch, nmf):
         raise AssertionError(f"objective {rel:.3g} from the f64 oracle > {ORACLE_RTOL}")
     say(f"phase 5 objective check 1000x500 r25: {rel:.3g} relative to the f64 oracle")
     return rel
+
+
+def scaled_err(a, b):
+    """max |a - b| / max |b|, in f64 on the host."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def matmul_family(torch, A, B, v):
+    """The members of the matmul family emulate_card_matmul_numerics
+    models, by name, as functions of (A, B, v); the last four are GEMVs
+    on the card."""
+    return {
+        "@": lambda: A @ B, "mm": lambda: torch.mm(A, B),
+        "addmm": lambda: torch.addmm(B, A, B),
+        "bmm": lambda: torch.bmm(A.reshape(4, -1, A.shape[1]), B.reshape(4, B.shape[0], -1)),
+        "einsum": lambda: torch.einsum("mk,kn->mn", A, B),
+        "mv": lambda: torch.mv(A, v), "addmv": lambda: torch.addmv(v, A, v, alpha=-1),
+        "one column out": lambda: A @ B[:, :1], "one row out": lambda: A[:1] @ B,
+    }
+
+
+def phase5b_card_numerics(torch, nmf):
+    """The card's f32 matmul numerics against the CPU emulation of them
+    (utils/debug.emulate_card_matmul_numerics), in TF32 mode."""
+    from nmf_toolbox_tpu_torch.ops.kernels import fused as fk, tf32
+    from nmf_toolbox_tpu_torch.utils import debug
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    n = NUMERICS_SHAPE
+    A, B = (torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)) for _ in range(2))
+    n = FAMILY_SHAPE
+    Af, Bf = (torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)) for _ in range(2))
+    vf = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    backend = torch.backends.cuda.matmul
+    saved = backend.fp32_precision
+    try:
+        backend.fp32_precision = "tf32"
+        card = (A.cuda() @ B.cuda()).cpu()
+        with debug.emulate_card_matmul_numerics():
+            emulated = A @ B
+        plain = A @ B
+        out = {"emulated": scaled_err(emulated, card), "plain": scaled_err(plain, card)}
+        for name, rounding in (("nearest-even", tf32.tf32_rne), ("nearest-away", tf32.tf32_rna),
+                               ("toward zero", tf32.tf32_rz)):
+            out[f"operands {name}"] = scaled_err(tf32.mm1(A, B, rounding), card)
+        on_card = {k: f().cpu() for k, f in matmul_family(
+            torch, Af.cuda(), Bf.cuda(), vf.cuda()).items()}
+        with debug.emulate_card_matmul_numerics():
+            family = {k: scaled_err(f(), on_card[k]) for k, f in matmul_family(
+                torch, Af, Bf, vf).items()}
+        # The kernels' products under the emulation (3xTF32), at phase 2's
+        # first shape, against the kernels on the card.
+        m, n_, k = CHECK_SHAPES[0]
+        V, W, H = (torch.from_numpy(rng.uniform(0.1, 1, s).astype(np.float32))
+                   for s in ((m, n_), (m, k), (k, n_)))
+        with debug.emulate_card_matmul_numerics():
+            twins = {"phi_dot_ht": fk.phi_dot_ht(V, W, H), "wt_dot_phi": fk.wt_dot_phi(V, W, H),
+                     "cost_terms": fk.cost_terms(V, W, H)}
+        Vc, Wc, Hc = V.cuda(), W.cuda(), H.cuda()
+        kernels = {"phi_dot_ht": fk.phi_dot_ht(Vc, Wc, Hc), "wt_dot_phi": fk.wt_dot_phi(Vc, Wc, Hc),
+                   "cost_terms": fk.cost_terms(Vc, Wc, Hc)}
+        out["kernels vs emulated twins"] = {k: scaled_err(twins[k], kernels[k]) for k in twins}
+        out["kernels vs plain"] = {k: scaled_err(getattr(fk, f"{k}_reference")(V, W, H), kernels[k])
+                                   for k in twins}
+        # BASELINE #1 (bench.py:55-88's problem) in TF32 on the card and
+        # emulated on the CPU, against f64 on the CPU.
+        rng = np.random.default_rng(42)
+        V = rng.uniform(0.05, 1.0, (1000, 500))
+        W0, H0 = rng.uniform(size=(1000, 25)), rng.uniform(size=(25, 500))
+        kw = dict(W_init=W0.astype(np.float32), H_init=H0.astype(np.float32),
+                  maxiter=200, tolerance=NEVER)
+        V32 = V.astype(np.float32)
+        runs = {"card tf32": nmf(V32, 25, device="cuda", **kw)}
+        with debug.emulate_card_matmul_numerics():
+            runs["cpu emulated"] = nmf(V32, 25, device="cpu", **kw)
+    finally:
+        backend.fp32_precision = saved
+    runs["cpu plain"] = nmf(V32, 25, device="cpu", **kw)
+    ref = nmf(V, 25, W_init=W0, H_init=H0, maxiter=200, tolerance=NEVER, device="cpu")
+    out["baseline1 vs f64"] = {
+        k: {"final cost": abs(float(r.cost[-1]) - float(ref.cost[-1])) / float(ref.cost[-1]),
+            "W": scaled_err(r.W, ref.W), "H": scaled_err(r.H, ref.H)} for k, r in runs.items()}
+    out["family emulated vs card"] = family
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase 5b card matmul numerics, TF32, {NUMERICS_SHAPE}^3 normal f32 (max |diff| / "
+        f"max |entry| against the card's product): {json.dumps(out)}")
+    bad = {k: e for k, e in family.items() if not e <= EMULATED_TOL}
+    if not out["emulated"] <= EMULATED_TOL or not out["plain"] > PLAIN_MIN or bad:
+        raise AssertionError(f"phase 5b: emulated {out['emulated']:.3g} (<= {EMULATED_TOL}), "
+                             f"plain {out['plain']:.3g} (> {PLAIN_MIN}), family {bad}")
+    return out
 
 
 def copy_gbps(torch):
@@ -3920,13 +4058,17 @@ def processes_naming(text):
     return out
 
 
-def phase19_four_cards(torch, V_gram):
+def phase19_four_cards(torch, V_gram, probe):
     """The mesh on four cards, one NCCL rank a card: every solve that
     takes a mesh held against one card, the orbax checkpoints, the
     collectives' times, the CLI under torchrun.  With fewer cards, one line
-    that says so."""
+    that says so.  The probe's card count must equal this process's before
+    any rank is spawned."""
     import tempfile
     count = torch.cuda.device_count()
+    if probe["count"] != count:
+        raise AssertionError(f"phase 19: the probe counted {probe['count']} live "
+                             f"cards, torch.cuda.device_count() {count}")
     if count < CARDS19:
         say(f"phase 19 did not run: {count} card{'' if count == 1 else 's'}; the "
             f"four-card mesh needs {CARDS19}")
@@ -3966,14 +4108,15 @@ def phase19_four_cards(torch, V_gram):
 
 
 def main():
+    probe = phase0_probe()
     import torch
-    phase0_device(torch)
+    phase0_device(torch, probe)
     phase1_build()
     if sys.argv[1:] == ["--phase", "19"]:
         m, n, k = GRAM
         g = torch.Generator(device="cuda").manual_seed(0)
         V = 0.05 + 0.95 * torch.rand((m, n), generator=g, device="cuda")
-        if phase19_four_cards(torch, V) is None:
+        if phase19_four_cards(torch, V, probe) is None:
             raise SystemExit("phase 19 only: fewer than four cards")
         say("phase 19 only: ok")
         return
@@ -3997,6 +4140,7 @@ def main():
     torch.cuda.empty_cache()
     phase4_gram(torch, nmf)
     phase5_objective(torch, nmf)
+    phase5b_card_numerics(torch, nmf)
     dma_launches = phase6_wphase_compare(torch, fk, dk, _build.load(), dma_stats)
     torch.cuda.empty_cache()
     m, n, k = GRAM
@@ -4042,7 +4186,7 @@ def main():
     hoyer_stats = phase18_hoyer_kernel(torch, hk)
     phased = phase18_phased(torch, fk, dk, hk, V)
     say(f"phase 18 wall time {time.perf_counter() - t18:.1f} s")
-    four = phase19_four_cards(torch, V)
+    four = phase19_four_cards(torch, V, probe)
     del V
 
     def mesh_launches(solve, name):

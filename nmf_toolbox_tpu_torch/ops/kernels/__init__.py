@@ -2,3 +2,6 @@
 
 The kernel library is built and loaded at first launch, never at import.
 """
+from .fused import cost_terms, phi_dot_ht, wt_dot_phi
+
+__all__ = ["phi_dot_ht", "wt_dot_phi", "cost_terms"]

@@ -11,8 +11,9 @@ pass.  The CUDA source is ``csrc/fused.cu``.
 Each wrapper takes the JAX signature ``(V, W, H, mode)`` with ``mode`` in
 {"kl", "is"} and f32 row-major ``V (m, n)``, ``W (m, k)``, ``H (k, n)``,
 ``1 <= k <= 1024``.  Tensors on the CPU go to the plain PyTorch version
-beside it (``*_reference``); tensors on a CUDA device launch the kernel
-on the current stream, or raise.  Nothing falls back.  Each launch adds
+beside it (``*_reference``, its products marked as the kernel's for the
+card-numerics emulation: ``tf32.kernel_products``); tensors on a CUDA
+device launch the kernel on the current stream, or raise.  Nothing falls back.  Each launch adds
 one to the wrapper's counter (``phi_dot_ht_launches`` and so on).
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .tf32 import kernel_products
 
 MAX_K = 1024
 MODES = ("kl", "is")
@@ -130,7 +132,8 @@ def phi_dot_ht(V, W, H, mode: str = "kl"):
     """
     global phi_dot_ht_launches
     if _on_cpu(V, W, H, mode):
-        return phi_dot_ht_reference(V, W, H, mode)
+        with kernel_products():
+            return phi_dot_ht_reference(V, W, H, mode)
     out = _phase("nmf_phi_dot_ht", 0, V, W, H, mode, (V.shape[0], W.shape[1]))
     phi_dot_ht_launches += 1
     return out
@@ -168,7 +171,8 @@ def wt_dot_phi(V, W, H, mode: str = "kl"):
     """
     global wt_dot_phi_launches
     if _on_cpu(V, W, H, mode):
-        return wt_dot_phi_reference(V, W, H, mode)
+        with kernel_products():
+            return wt_dot_phi_reference(V, W, H, mode)
     out = _phase("nmf_wt_dot_phi", 1, V, W, H, mode, (W.shape[1], V.shape[1]))
     wt_dot_phi_launches += 1
     return out
@@ -219,7 +223,8 @@ def cost_terms(V, W, H, mode: str = "kl"):
     """
     global cost_terms_launches
     if _on_cpu(V, W, H, mode):
-        return cost_terms_reference(V, W, H, mode)
+        with kernel_products():
+            return cost_terms_reference(V, W, H, mode)
     lib = _build.load()
     m, n = V.shape
     part = torch.empty((2 * lib.nmf_cost_partials(m, n),), dtype=torch.float64,

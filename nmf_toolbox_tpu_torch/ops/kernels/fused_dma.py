@@ -22,6 +22,7 @@ import torch
 
 from . import _build
 from .fused import _on_cpu, _raise_on
+from .tf32 import kernel_products
 
 MAX_K = 512
 
@@ -52,7 +53,8 @@ def kl_phi_dot_ht_dma(V, W, H):
     """(V / (W @ H)) @ H' with V and H streamed through shared memory."""
     global kl_phi_dot_ht_dma_launches
     if _on_cpu(V, W, H, "kl", MAX_K):
-        return kl_phi_dot_ht_dma_reference(V, W, H)
+        with kernel_products():
+            return kl_phi_dot_ht_dma_reference(V, W, H)
     lib = _build.load()
     m, n = V.shape
     k = W.shape[1]

@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..core import host_read
+from ..core import host_read, torch_dtype
 
 
 class LoopOut(NamedTuple):
@@ -67,11 +67,14 @@ def run(step_fn: Callable, init_state, maxiter: int, tolerance,
     non-check iteration passes the carried cost, the value its trace
     entry holds.
     """
-    state0 = init_state[0] if isinstance(init_state, (tuple, list)) else init_state
-    device = state0.device
+    state0 = init_state[0] if isinstance(init_state, (tuple, list)) and init_state else init_state
+    # The cost buffer lives with the state; a state with no tensor (a step
+    # that carries nothing) keeps it on the host.
+    device = state0.device if torch.is_tensor(state0) else torch.device("cpu")
     if cost_dtype is None:
         cost_dtype = (torch.as_tensor(initial_cost).dtype
                       if initial_cost is not None else torch.float32)
+    cost_dtype = torch_dtype(cost_dtype)
     buf = torch.zeros((maxiter + offset,), dtype=cost_dtype, device=device)
     if initial_cost is not None:
         buf[0] = torch.as_tensor(initial_cost, dtype=cost_dtype)

@@ -100,7 +100,8 @@ def make_mesh(n_devices: int | None = None, *, shape=None,
     every rank of the default process group (:func:`init_distributed`
     or ``torch.distributed.init_process_group`` first), so ``n_devices``
     or ``r * c`` must equal the world size.  ``device_type``: ``"cuda"``
-    when a card is present, else ``"cpu"``.
+    unless the caller names ``"cpu"``; with no card a CUDA mesh raises,
+    never a silent mesh on the CPU (as :func:`core.resolve_device` does).
     """
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -123,8 +124,12 @@ def make_mesh(n_devices: int | None = None, *, shape=None,
         raise ValueError(f"a mesh of {dims} needs {total} ranks; the process "
                          f"group has {world} (one rank per device)")
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        device_type = "cuda"
     if device_type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh builds a mesh of CUDA cards unless told "
+                               "otherwise and finds none; pass device_type=\"cpu\" "
+                               "for a mesh on the CPU")
         torch.cuda.set_device(local_card(dist.get_rank()))
     # The axis groups are made here, every rank making every group in the
     # same order, and handed to DeviceMesh: DeviceMesh's own group set-up

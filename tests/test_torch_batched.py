@@ -319,7 +319,7 @@ def test_mesh_not_ported(name):
     from nmf_toolbox_tpu_torch.parallel import make_mesh
     a = ENGINES[name](**CPU)
     with one_rank():
-        b = ENGINES[name](mesh=make_mesh(1))
+        b = ENGINES[name](mesh=make_mesh(1, device_type="cpu"))
     assert torch.equal(a.H, b.H)
     np.testing.assert_array_equal(a.cost, b.cost)
 

@@ -410,7 +410,7 @@ def test_orbax_and_mesh_raise(tmp_path):
     kw = {k: v for k, v in F64.items() if k != "device"}
     with one_rank():
         res = run_checkpointed(tt.nmf, V, 2, total_iters=4, chunk=2,
-                               path=tmp_path / "m", mesh=make_mesh(1), **kw)
+                               path=tmp_path / "m", mesh=make_mesh(1, device_type="cpu"), **kw)
     assert (tmp_path / "m").is_dir()  # auto: orbax for a mesh run
     assert torch.equal(res.W, ref.W) and torch.equal(res.H, ref.H)
     with pytest.raises(TypeError, match="make_mesh"):

@@ -247,6 +247,6 @@ def test_cmfwisa_encode_shape_errors():
     from nmf_toolbox_tpu_torch.parallel import make_mesh
     a = tt.cmfwisa_encode(Vs, Ws, maxiter=3, **CPU)
     with one_rank():
-        b = tt.cmfwisa_encode(Vs, Ws, maxiter=3, mesh=make_mesh(1))
+        b = tt.cmfwisa_encode(Vs, Ws, maxiter=3, mesh=make_mesh(1, device_type="cpu"))
     for s in range(len(Ws)):
         assert torch.equal(a.H[s], b.H[s]) and torch.equal(a.P[s], b.P[s])

@@ -196,7 +196,7 @@ def test_mesh_not_ported():
     for kw in ({}, {"extrapolate": True}):
         a = tt.nmf_hals(V, 3, maxiter=4, **kw, **CPU)
         with one_rank():
-            b = tt.nmf_hals(V, 3, maxiter=4, mesh=make_mesh(1), **kw)
+            b = tt.nmf_hals(V, 3, maxiter=4, mesh=make_mesh(1, device_type="cpu"), **kw)
         assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
         np.testing.assert_array_equal(a.cost, b.cost)
         if kw:

@@ -234,7 +234,7 @@ def test_not_ported_options_raise(cfg):
     for div in ("euclidean", "kl"):
         a = tt.nmf(V, 3, maxiter=4, divergence=div, **CPU)
         with one_rank():
-            b = tt.nmf(V, 3, maxiter=4, divergence=div, mesh=make_mesh(1))
+            b = tt.nmf(V, 3, maxiter=4, divergence=div, mesh=make_mesh(1, device_type="cpu"))
         assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
         np.testing.assert_array_equal(a.cost, b.cost)
 

@@ -74,3 +74,31 @@ def test_utils_all_equals_jax_less_orbax():
     assert tutils.__all__ == jutils.__all__
     for name in tutils.__all__:
         assert getattr(tutils, name).__module__.startswith("nmf_toolbox_tpu_torch.")
+
+
+def test_every_jax_test_module_is_collected():
+    """Every test module of the JAX package (tests/test_*.py but the
+    port's own) is collected by a tests/test_torch_jax_suite_*.py file."""
+    here = REPO / "tests"
+    named = set()
+    for path in here.glob("test_torch_jax_suite_*.py"):
+        named |= set(re.findall(r'^    "(test_\w+)": ', path.read_text(), re.M))
+    jax_modules = {p.stem for p in here.glob("test_*.py") if not p.stem.startswith("test_torch_")}
+    assert len(jax_modules) == 44 and jax_modules == named
+
+
+def test_module_trees_match_the_jax_package():
+    """The two packages list the same modules, apart from the kernels'
+    folder (ops/pallas <-> ops/kernels) and the port's own interop.py and
+    parallel/collectives.py; utils.debug has the emulation's counterpart."""
+    def modules(root, kernels):
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")
+                if not p.relative_to(root).as_posix().startswith(kernels)}
+    jax_modules = modules(REPO / "nmf_toolbox_tpu", "ops/pallas/")
+    port_modules = modules(PKG, "ops/kernels/")
+    assert port_modules - jax_modules == {"interop.py", "parallel/collectives.py"}
+    assert jax_modules <= port_modules and "utils/deviceprobe.py" in port_modules
+    from nmf_toolbox_tpu.utils import debug as jdebug
+    from nmf_toolbox_tpu_torch.utils import debug
+    assert callable(jdebug.emulate_tpu_matmul_numerics)
+    assert callable(debug.emulate_card_matmul_numerics)

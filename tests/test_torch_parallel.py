@@ -77,6 +77,19 @@ def test_make_mesh_needs_a_process_group():
         tpar.make_mesh(1)
 
 
+def test_make_mesh_without_a_card_raises(monkeypatch):
+    """With no device_type the mesh is one of CUDA cards: with no card it
+    raises (never a silent CPU mesh), and device_type="cpu" still builds
+    the CPU mesh."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with one_rank():
+        with pytest.raises(RuntimeError, match='device_type="cpu"'):
+            tpar.make_mesh(1)
+        with pytest.raises(RuntimeError, match="finds none"):
+            tpar.make_mesh(shape=(1, 1), device_type="cuda")
+        assert tpar.make_mesh(1, device_type="cpu").device == torch.device("cpu")
+
+
 def test_placement_tables_complete():
     """Every solver's placements, on a 1-D and a 2-D mesh, are the JAX
     package's PartitionSpecs entry for entry."""
@@ -237,6 +250,42 @@ def test_hals_early_stop_and_mesh(ranks, kind):
     got = ranks.solve("nmf_toolbox_tpu_torch.nmf_hals", V, 3, mesh=kind, **kw)
     close(got, jt.nmf_hals(V, 3, mesh=jmesh(kind), **kw), atol=1e-9, rtol=1e-9)
     close(got, tt.nmf_hals(V, 3, **kw, **CPU), atol=1e-9, rtol=1e-9)
+
+
+def _hals_gap_problem(m=2000, n=1000, rank=20, seed=0):
+    """V of the HALS mesh-gap question: a rank-20 gamma product plus U(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    return (rng.gamma(2.0, 1.0, (m, rank)) @ rng.gamma(1.0, 1.0, (rank, n))
+            + rng.uniform(0, 0.1, (m, n)))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_hals_nndsvda_mesh_gap_follows_the_reference(ranks, kind):
+    """HALS from NNDSVDA seeds, f64, 2000x1000 r50: the gap between four
+    ranks and no mesh (max |dW| / max |W|) grows with the sweeps as the
+    JAX package's own gap between its 4-device mesh and no mesh grows,
+    from sums in another order; the port's stays within 100x of it
+    (floored at 1e-15), and after one sweep both stay below 1e-12."""
+    V = _hals_gap_problem()
+    for sweeps in (1, 5, 10):
+        kw = dict(init="nndsvda", maxiter=sweeps, tolerance=1e-30, dtype=np.float64)
+        got = ranks.solve("nmf_toolbox_tpu_torch.nmf_hals", V, 50, mesh=kind, **kw)
+        # One thread, as each rank runs: two threads split the BLAS sums
+        # otherwise and move W by 2e-10 after one sweep with no mesh at all.
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            one = arr(tt.nmf_hals(V, 50, **kw, **CPU).W)
+        finally:
+            torch.set_num_threads(threads)
+        port_gap = np.max(np.abs(got["W"] - one)) / np.max(np.abs(one))
+        jone = np.asarray(jt.nmf_hals(V, 50, **kw).W)
+        jax_gap = (np.max(np.abs(np.asarray(jt.nmf_hals(V, 50, mesh=jmesh(kind), **kw).W)
+                                 - jone)) / np.max(np.abs(jone)))
+        print(f"{kind} {sweeps} sweeps: port {port_gap:.3g}, JAX {jax_gap:.3g}")
+        assert port_gap <= 100 * max(jax_gap, 1e-15), (sweeps, port_gap, jax_gap)
+        if sweeps == 1:
+            assert port_gap < 1e-12 and jax_gap < 1e-12
 
 
 @pytest.mark.parametrize("opt", [dict(extrapolate=True), dict(inner_iters=2),

@@ -6,9 +6,9 @@ operand x is split into hi = tf32(x) and lo = tf32(x - hi), rounded to
 nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds, and a
 product is lo*hi + hi*lo + hi*hi with f32 accumulation, which the tensor
 cores truncate toward zero at every mma.  This module
-emulates that arithmetic in plain PyTorch and holds it against f64, so the
-error budget of the design is checked where no card is needed.  Imports
-no JAX.
+holds that arithmetic, as ``nmf_toolbox_tpu_torch/ops/kernels/tf32.py``
+models it in plain PyTorch, against f64, so the error budget of the
+design is checked where no card is needed.  Imports no JAX.
 """
 import functools
 
@@ -19,38 +19,17 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from nmf_toolbox_tpu_torch.ops.kernels import fused as fk  # noqa: E402
+from nmf_toolbox_tpu_torch.ops.kernels.tf32 import (mm1, mm3, split, tf32_rna,  # noqa: E402
+                                                    tf32_rne, tf32_rz)
 
 # f32 accumulation over a few thousand terms, well under the 1e-4 gate
 # that the kernels are held to against their f32 plain versions.
 REL_TOL = 2e-5
-TF32_MASK = -0x2000  # 0xFFFFE000 as an int32: sign, exponent, 10 mantissa bits
 # f64 bits that f32 lacks (29 of the 52 mantissa bits): clearing them
 # truncates a value in f32's normal range to f32, toward zero.
 F32_IN_F64_MASK = ~((1 << 29) - 1)
 # The cost kernels' gate against the f32 plain version on the card.
 COST_REL_TOL = 1e-4
-
-
-def tf32_rna(x):
-    """Round f32 to TF32 on the float's bits: add half of the dropped 13
-    bits' range, then drop them (nearest, ties away from zero)."""
-    return ((x.view(torch.int32) + 0x1000) & TF32_MASK).view(torch.float32)
-
-
-def split(x):
-    hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)
-
-
-def mm3(a, b):
-    """a @ b in 3xTF32: the two small products first, then hi*hi."""
-    (ah, al), (bh, bl) = split(a), split(b)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-def mm1(a, b):
-    """a @ b in plain TF32 (one product of the rounded operands)."""
-    return tf32_rna(a) @ tf32_rna(b)
 
 
 def fields(V, V_hat, mode):
@@ -99,6 +78,25 @@ def test_tf32_rounding_on_the_bits():
     assert float(tf32_rna(-tie)) == -(1.0 + step)
     assert float(tf32_rna(below)) == 1.0
     assert float(tf32_rna(-below)) == -1.0
+
+
+def test_tf32_nearest_even_and_toward_zero():
+    """cuBLAS's TF32 rounding (nearest, ties to even) differs from the
+    kernels' cvt.rna only at ties; truncation drops the 13 bits."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    ties = (x.view(torch.int32) & 0x1FFF) == 0x1000
+    assert torch.equal(tf32_rne(x)[~ties], tf32_rna(x)[~ties])
+    assert torch.all((tf32_rz(x).view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all(tf32_rz(x).abs() <= x.abs())
+    one = torch.tensor([1.0], dtype=torch.float32)
+    step = 2.0 ** -10
+    bits = one.view(torch.int32)
+    even_tie = (bits + 0x1000).view(torch.float32)            # 1 + step/2: down to 1
+    odd_tie = (bits + 0x2000 + 0x1000).view(torch.float32)   # 1 + 3 step/2: up to 1 + 2 step
+    assert float(tf32_rne(even_tie)) == 1.0 and float(tf32_rne(-even_tie)) == -1.0
+    assert float(tf32_rne(odd_tie)) == 1.0 + 2 * step
+    assert float(tf32_rz(odd_tie)) == 1.0 + step
 
 
 def test_split_recovers_x():

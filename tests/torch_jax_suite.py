@@ -18,13 +18,17 @@ puts what it collects into its own namespace, named
 from __future__ import annotations
 
 import builtins
+import contextlib
 import dataclasses
 import functools
 import importlib
 import importlib.util
 import inspect
+import io
 import pathlib
+import subprocess
 import sys
+import traceback
 import types
 
 import numpy as np
@@ -97,7 +101,8 @@ def on_cpu(fn):
 @functools.cache
 def on_cpu_class(cls):
     """``cls``, or where its constructor takes a device (the estimator) a
-    subclass of it that passes ``device="cpu"`` unless given."""
+    subclass of it that passes ``device="cpu"`` unless given; each instance
+    made counts as reaching the port."""
     try:
         params = inspect.signature(cls).parameters.values()
     except (TypeError, ValueError):
@@ -106,14 +111,36 @@ def on_cpu_class(cls):
         return cls
 
     def __init__(self, *args, **kwargs):
+        REACHED[0] += 1
         kwargs.setdefault("device", "cpu")
         cls.__init__(self, *args, **kwargs)
     return type(cls.__name__, (cls,), {"__init__": __init__, "__port__": cls,
                                        "__module__": cls.__module__})
 
 
+def is_jax_array(x) -> bool:
+    jax = sys.modules.get("jax")
+    return jax is not None and isinstance(x, jax.Array)
+
+
+def from_jax(x):
+    """A JAX array as a CPU tensor, through tuples and lists."""
+    if is_jax_array(x):
+        return torch.from_numpy(np.array(x))
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(from_jax(v) for v in x)
+    return x
+
+
 def tensor(x):
-    return torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+    """A NumPy array, or a JAX array a test made (``jnp.asarray``), as a CPU
+    tensor; a test's own function that the port calls back (a loop's step)
+    with its JAX results as tensors; anything else as it is."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    if isinstance(x, types.FunctionType) and not hasattr(x, "__port__"):
+        return functools.wraps(x)(lambda *args, **kwargs: from_jax(x(*args, **kwargs)))
+    return from_jax(x)
 
 
 class Shim(types.ModuleType):
@@ -160,12 +187,72 @@ def shim(module) -> Shim:
 SHIM = shim(port)
 
 
+def port_name(name: str) -> str:
+    """The port's module for a JAX module path: the same path under
+    ``nmf_toolbox_tpu_torch``, with ``ops.pallas`` (the Pallas kernels) as
+    ``ops.kernels`` (their CUDA counterparts, the same signatures)."""
+    name = "nmf_toolbox_tpu_torch" + name[len("nmf_toolbox_tpu"):]
+    return name.replace(".ops.pallas", ".ops.kernels")
+
+
+def run_port_cli(argv):
+    """The port's CLI, ``cli.main(argv)`` with ``--device cpu`` unless
+    given, in this process, as a finished ``python -m`` command: its exit
+    code, standard output and standard error (an uncaught exception as a
+    traceback and code 1, as the interpreter reports it)."""
+    from nmf_toolbox_tpu_torch import cli
+    REACHED[0] += 1
+    argv = [*argv, "--device", "cpu"] if "--device" not in argv else list(argv)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            code = cli.main(argv) or 0
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+            if not isinstance(e.code, (int, type(None))):
+                print(e.code, file=sys.stderr)
+        except Exception:  # the interpreter's report of an uncaught exception
+            traceback.print_exc()
+            code = 1
+    return subprocess.CompletedProcess(["python", "-m", "nmf_toolbox_tpu_torch", *argv],
+                                       code, out.getvalue(), err.getvalue())
+
+
+class Subprocess(types.ModuleType):
+    """``subprocess`` for a loaded test module: ``run`` of ``[python, "-m",
+    "nmf_toolbox_tpu", *argv]`` (the JAX package's CLI) runs the port's CLI
+    instead (:func:`run_port_cli`); every other command and name is the
+    real module's."""
+
+    def __init__(self):
+        super().__init__("subprocess")
+
+    def __getattr__(self, name):
+        return getattr(subprocess, name)
+
+    @staticmethod
+    def run(cmd, *args, **kwargs):
+        cmd = list(cmd) if isinstance(cmd, (list, tuple)) else cmd
+        if isinstance(cmd, list) and cmd[1:3] == ["-m", "nmf_toolbox_tpu"]:
+            return run_port_cli([str(a) for a in cmd[3:]])
+        return subprocess.run(cmd, *args, **kwargs)
+
+
+SUBPROCESS = Subprocess()
+
+
 def port_import(name, globals=None, locals=None, fromlist=(), level=0):
     """``__import__`` with the JAX package's modules replaced by the
-    port's of the same path, as :class:`Shim`\\ s."""
+    port's of the same path (:func:`port_name`), as :class:`Shim`\\ s;
+    ``subprocess`` as :class:`Subprocess`, and a test module of this
+    directory as :func:`load` makes it."""
     if level == 0 and (name == "nmf_toolbox_tpu" or name.startswith("nmf_toolbox_tpu.")):
-        module = importlib.import_module("nmf_toolbox_tpu_torch" + name[len("nmf_toolbox_tpu"):])
+        module = importlib.import_module(port_name(name))
         return shim(module) if fromlist else SHIM
+    if level == 0 and name == "subprocess":
+        return SUBPROCESS
+    if level == 0 and name.startswith("test_") and (TESTS / f"{name}.py").is_file():
+        return load(name)
     return builtins.__import__(name, globals, locals, fromlist, level)
 
 
@@ -177,17 +264,28 @@ def _reaches_the_port():
     assert REACHED[0] > before, "the test never reached the port"
 
 
+def load(module: str) -> types.ModuleType:
+    """``tests/<module>.py`` executed once with :func:`port_import` as its
+    ``__import__`` (at the module's top and inside every test)."""
+    name = f"torch_jax_suite.{module}"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, TESTS / f"{module}.py")
+        mod = importlib.util.module_from_spec(spec)
+        mod.__builtins__ = {**vars(builtins), "__import__": port_import}
+        sys.modules[name] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[name]
+            raise
+    return sys.modules[name]
+
+
 def collect(module: str, excluded: dict[str, str]) -> dict:
-    """The tests, test classes and fixtures of ``tests/<module>.py``,
-    executed with :func:`port_import` as their ``__import__`` (at the
-    module's top and inside every test), under the names a suite file
-    exposes; ``excluded`` maps each left-out test to its reason."""
-    spec = importlib.util.spec_from_file_location(f"torch_jax_suite.{module}",
-                                                  TESTS / f"{module}.py")
-    mod = importlib.util.module_from_spec(spec)
-    mod.__builtins__ = {**vars(builtins), "__import__": port_import}
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
+    """The tests, test classes and fixtures of ``tests/<module>.py``
+    (:func:`load`), under the names a suite file exposes; ``excluded``
+    maps each left-out test to its reason."""
+    mod = load(module)
     missing = sorted(set(excluded) - set(vars(mod)))
     if missing:
         raise LookupError(f"{module}: excluded tests not found: {missing}")
