@@ -50,6 +50,24 @@ def host_read(t: torch.Tensor):
     return t.tolist()
 
 
+# The one context every span returns while no profiler records.
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler records, else one shared ``nullcontext``: with no profiler a
+    span costs one call that reads the profiler's state.  Under
+    ``torch.profiler`` with CUDA activity the range shares the clock of
+    the card's events, so a trace can put each kernel and each idle gap
+    down to the span that launched it.  Names are fixed (no per-call
+    numbers), so that a trace sums by them."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def full_f32_matmul():
     """Full-f32 matmuls (no TF32 on CUDA, no bf16/TF32 in oneDNN on the

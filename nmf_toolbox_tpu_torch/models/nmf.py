@@ -30,7 +30,8 @@ from ..core import (Result, as_list, as_tensor, common_scalars, default_h_init,
                     default_w_init, fixed_col_mask, merge_config,
                     parse_cost_every, per_column, promote_inits,
                     promote_per_source, resolve_device, resolve_dtype,
-                    source_blocks, staging_device, torch_dtype, unwrap_sources)
+                    source_blocks, span, staging_device, torch_dtype,
+                    unwrap_sources)
 from ..ops import divergence as dv
 from ..ops import loop as looplib
 from ..ops.gram import euclidean_cost_gram, sq_norm, vdot
@@ -256,7 +257,16 @@ def nmf(V, num_basis_elems, config: dict | None = None, **kwargs):
 
     Returns a :class:`Result` unpacking as (W, H, cost): ``W`` and ``H``
     tensors on the run's device, ``cost`` a NumPy array.
+
+    Under a profiler the call is the span ``nmf.solve``: its entry work
+    (config, inits, placement, W0's unit columns, the step's constants)
+    runs from its start to the loop's span ``loop.run``.
     """
+    with span("nmf.solve"):
+        return _solve(V, num_basis_elems, config, kwargs)
+
+
+def _solve(V, num_basis_elems, config, kwargs):
     cfg = merge_config(config, kwargs)
     mesh = check_mesh(cfg.get("mesh"))
     device = resolve_device(V, cfg.get("device"), mesh)

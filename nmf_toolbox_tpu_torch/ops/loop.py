@@ -19,6 +19,11 @@ pays one host sync per check.  A run with a ``callback`` reads the cost
 (and, on a check, the boolean with it) once per iteration instead.
 ``n_iters``, ``stopped``, ``terminated`` and the trim rules are those of
 the JAX loop.
+
+Under a profiler the loop is the span ``loop.run``, each iteration inside
+it ``loop.iter``, each host read of the loop ``loop.read`` and each
+objective that :func:`cost_cadence` computes ``loop.cost`` (``core.span``;
+nothing is recorded otherwise).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..core import host_read, torch_dtype
+from ..core import host_read, span, torch_dtype
 
 
 class LoopOut(NamedTuple):
@@ -82,27 +87,38 @@ def run(step_fn: Callable, init_state, maxiter: int, tolerance,
     ce = int(cost_every)
 
     state, i, stopped, terminated = init_state, 0, False, False
-    while not stopped and not terminated and i < maxiter:
-        state, c, term = step_fn(state, i)
-        terminated = bool(host_read(term) if torch.is_tensor(term) else term)
-        buf[i + offset] = c
-        c, trigger = buf[i + offset], None
-        if i >= 1 and not terminated and is_check(i, ce, maxiter):
-            prev = buf[max(i + offset - 1, 0)]
-            if inclusive:
-                trigger = (c <= prev) & (prev - c <= tol)
-            else:
-                trigger = (c < prev) & (prev - c < tol)
-        if callback is not None:
-            # One read brings the cost and, on a check, the trigger.
-            read = host_read(c[None] if trigger is None
-                             else torch.stack((c, trigger.to(cost_dtype))))
-            callback(i, read[0])
-            stopped = trigger is not None and bool(read[1])
-        elif trigger is not None:
-            stopped = host_read(trigger)  # the one host sync of a check iteration
-        i += 1
+    # ``loop.run`` holds the turn between two iterations' spans too, so that
+    # no idle stretch of the card inside the loop falls outside a loop span.
+    with span("loop.run"):
+        while not stopped and not terminated and i < maxiter:
+            with span("loop.iter"):
+                state, c, term = step_fn(state, i)
+                terminated = bool(_read(term) if torch.is_tensor(term) else term)
+                buf[i + offset] = c
+                c, trigger = buf[i + offset], None
+                if i >= 1 and not terminated and is_check(i, ce, maxiter):
+                    prev = buf[max(i + offset - 1, 0)]
+                    if inclusive:
+                        trigger = (c <= prev) & (prev - c <= tol)
+                    else:
+                        trigger = (c < prev) & (prev - c < tol)
+                if callback is not None:
+                    # One read brings the cost and, on a check, the trigger.
+                    read = _read(c[None] if trigger is None
+                                 else torch.stack((c, trigger.to(cost_dtype))))
+                    callback(i, read[0])
+                    stopped = trigger is not None and bool(read[1])
+                elif trigger is not None:
+                    stopped = _read(trigger)  # the one host sync of a check iteration
+            i += 1
     return LoopOut(state, buf, i, stopped, terminated)
+
+
+def _read(t: torch.Tensor):
+    """The loop's host read, in the span ``loop.read``: the sync in which
+    the card idles until the host has the value and issues the next step."""
+    with span("loop.read"):
+        return host_read(t)
 
 
 def cadence_state(state: tuple, ce: int, dtype) -> tuple:
@@ -136,11 +152,15 @@ def cost_cadence(ce: int, maxiter: int):
     """
     ce = int(ce)
 
+    def cost(cost_fn):
+        with span("loop.cost"):  # the objective, whatever computes it
+            return cost_fn()
+
     def finish(state, carry, i, cost_fn):
         if ce == 1:
-            return tuple(state), cost_fn(), False
+            return tuple(state), cost(cost_fn), False
         cp = carry[-1]
-        c = cost_fn().to(cp.dtype) if is_check(i, ce, maxiter) else cp
+        c = cost(cost_fn).to(cp.dtype) if is_check(i, ce, maxiter) else cp
         return tuple(state) + (c,), c, False
 
     return finish

@@ -21,11 +21,16 @@ needs the T - 1 columns of its neighbours (:func:`halo`).  Only
 ``all_reduce`` and ``all_gather`` are used, the halo included: both
 carry CUDA tensors over NCCL and Gloo, where Gloo's point-to-point
 ``send``/``recv`` take CPU tensors only.
+
+Under a profiler each ``all_reduce`` is the span ``collectives.reduce``
+and each ``all_gather`` ``collectives.gather`` (``core.span``), with
+the copies around it; every rank issues them in the same order.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import span
 from .mesh import FEATURE_AXIS, SAMPLE_AXIS
 
 ALIGN = 64  # elements: where each tensor of a multi-tensor sum starts
@@ -61,21 +66,22 @@ def _reduce(mesh, axis, xs):
     import torch.distributed as dist
     group = None if axis is None else mesh.group(axis)
     calls += 1
-    if len(xs) == 1 and xs[0].is_contiguous():
-        dist.all_reduce(xs[0], group=group)
-        return xs[0]
-    # Each tensor starts at a multiple of ALIGN elements of the flat
-    # buffer, so that the products reading the reduced views find the
-    # alignment (and take the kernels) that fresh tensors would.
-    starts, at = [], 0
-    for x in xs:
-        starts.append(at)
-        at += -(-x.numel() // ALIGN) * ALIGN
-    flat = torch.empty(at, dtype=xs[0].dtype, device=xs[0].device)
-    out = tuple(flat.as_strided(x.shape, _strides(x), a) for x, a in zip(xs, starts))
-    for view, x in zip(out, xs):
-        view.copy_(x)
-    dist.all_reduce(flat, group=group)
+    with span("collectives.reduce"):
+        if len(xs) == 1 and xs[0].is_contiguous():
+            dist.all_reduce(xs[0], group=group)
+            return xs[0]
+        # Each tensor starts at a multiple of ALIGN elements of the flat
+        # buffer, so that the products reading the reduced views find the
+        # alignment (and take the kernels) that fresh tensors would.
+        starts, at = [], 0
+        for x in xs:
+            starts.append(at)
+            at += -(-x.numel() // ALIGN) * ALIGN
+        flat = torch.empty(at, dtype=xs[0].dtype, device=xs[0].device)
+        out = tuple(flat.as_strided(x.shape, _strides(x), a) for x, a in zip(xs, starts))
+        for view, x in zip(out, xs):
+            view.copy_(x)
+        dist.all_reduce(flat, group=group)
     return out[0] if len(out) == 1 else out
 
 
@@ -105,10 +111,11 @@ def _gather(group, size: int, x, dim: int):
     global calls
     import torch.distributed as dist
     calls += 1
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(size)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    with span("collectives.gather"):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
 
 
 def halo(mesh, x, width: int, side: str):
@@ -127,16 +134,17 @@ def halo(mesh, x, width: int, side: str):
     import torch.distributed as dist
     b = x.shape[-1]
     w = min(width, b)
-    edge = (x[..., b - w:] if side == "left" else x[..., :w]).contiguous()
-    parts = [torch.empty_like(edge) for _ in range(size)]
     calls += 1
-    dist.all_gather(parts, edge, group=mesh.group(SAMPLE_AXIS))
-    r, span = mesh.coord(SAMPLE_AXIS), -(-width // w)  # neighbours it spans
+    with span("collectives.gather"):
+        edge = (x[..., b - w:] if side == "left" else x[..., :w]).contiguous()
+        parts = [torch.empty_like(edge) for _ in range(size)]
+        dist.all_gather(parts, edge, group=mesh.group(SAMPLE_AXIS))
+    r, reach = mesh.coord(SAMPLE_AXIS), -(-width // w)  # neighbours it spans
     zero = torch.zeros_like(edge)
     if side == "left":
-        got = [parts[j] if j >= 0 else zero for j in range(r - span, r)]
+        got = [parts[j] if j >= 0 else zero for j in range(r - reach, r)]
         return torch.cat(got, dim=-1)[..., -width:]
-    got = [parts[j] if j < size else zero for j in range(r + 1, r + 1 + span)]
+    got = [parts[j] if j < size else zero for j in range(r + 1, r + 1 + reach)]
     return torch.cat(got, dim=-1)[..., :width]
 
 

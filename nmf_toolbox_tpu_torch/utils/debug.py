@@ -2,7 +2,10 @@
 ``nmf_toolbox_tpu/utils/debug.py``).
 
 * ``trace(label)``: a ``torch.profiler.record_function`` range around a
-  block, which a profile shows as a span named ``label``.
+  block, which a profile shows as a span named ``label``; it records only
+  while a profiler records (``core.span``, the port's own spans' primitive,
+  under its public name), and costs one read of the profiler's state
+  otherwise.
 * ``profile_to(logdir)``: capture a ``torch.profiler`` profile around a
   block (CPU ops, and the card's kernels when CUDA is available) and
   write it to ``logdir`` as a Chrome trace.
@@ -25,13 +28,13 @@ import time
 import numpy as np
 import torch
 
-from ..core import to_host
+from ..core import span, to_host
 from ..ops.kernels import tf32
 
 
-def trace(label: str):
-    """Profiler annotation: ``with trace('nmf'): nt.nmf(...)``."""
-    return torch.profiler.record_function(label)
+# Profiler annotation, ``with trace("nmf"): nt.nmf(...)``: recorded only
+# under a profiler (``profile_to``, ``torch.profiler``).
+trace = span
 
 
 @contextlib.contextmanager

@@ -167,6 +167,35 @@ def call_counted(fn, *args, **kwargs):
     return out
 
 
+def profiled_spans(fn):
+    """``fn()`` under ``torch.profiler`` (CPU activity): its result and
+    the spans it recorded (``user_annotation`` events of the exported
+    trace) as ``(name, start_us, end_us)`` in the order they start."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                   for e in events if e.get("cat") == "user_annotation")
+    return out, [(name, s, e) for s, e, name in spans]
+
+
+def collective_spans(fn, *args, **kwargs):
+    """Rank side: :func:`call` under the profiler; the names of the
+    ``collectives.*`` spans it recorded, in order, and the collectives it
+    issued (``collectives.calls``)."""
+    from nmf_toolbox_tpu_torch.parallel import collectives
+    before = collectives.calls
+    _, spans = profiled_spans(lambda: call(fn, *args, **kwargs))
+    return ([name for name, _, _ in spans if name.startswith("collectives.")],
+            collectives.calls - before)
+
+
 def streaming(V, k, draws, mesh, **kwargs):
     """Rank side: ``nmf_streaming`` on the mesh, its block inits the
     arrays ``draws`` in order (as the JAX package's are patched to)."""
