@@ -41,12 +41,28 @@ without printing the last line:
    at 300x700 k=40, the W-phase comparison's three shapes (TFLOP/s, 4mnk,
    at the main one) and both sides of each of its tier edges at
    2 000x3 000, each with the tier that ran; a ValueError at k=1024;
+2b. the naive KL step's two passes (csrc/naive_kl.cu) at 40 000x10 000
+   against their plain PyTorch versions on the card, V with NaN where a
+   fifth of the zero weights lie (the M > 0 gate must zero them):
+   ``kl_field`` (weighted) ``torch.equal`` to ``kl_field_reference``,
+   ``kl_cost_terms`` weighted and unweighted within 1e-7 relative of an
+   f64 sum of the plain version's f32 terms, each bit-identical over two
+   runs; kernel and plain ms beside the byte bound at 3.35 TB/s (16
+   bytes an entry for the field, 12 and 8 for the cost).  Then a
+   weighted KL ``nmf(method="naive")`` at 40 000x10 000 r100 (80 % of
+   the weights above 0), 10 iterations: W and H ``torch.equal`` to the
+   same solve with the wrappers swapped for their plain versions, the
+   counters (set to 0 before) at 20 fields and 10 costs, ms/iter both
+   ways;
 3. the main path, ``nmf(method="fused")`` at 40 000x10 000 rank 100 f32,
    KL and IS, 10 iterations, with every kernel's launch counter
    (kl_phi_dot_ht_dma's too) set to 0 before and read after, each fused
    kernel's required above 0; costs finite, KL non-increasing, and
    within rtol 2e-3 of ``method="naive"`` on the same inits
-   (test_fused_solver_matches_naive's threshold); ms/iteration of both;
+   (test_fused_solver_matches_naive's threshold), the naive KL run
+   launching the naive KL cost pass once an iteration and no field pass
+   (its counters set to 0 before and read after; the naive IS run none);
+   ms/iteration of both;
    then torch.profiler's device time per kernel and the device's idle
    share over one more fused KL run of 10 iterations;
 4. the default Euclidean ``gram`` path at 100 000x10 000 rank 200 f32,
@@ -135,8 +151,9 @@ without printing the last line:
    1e-9, constrainednmf's A exact); each solver in f32 on the card (NumPy
    inputs, no ``device=``) within 1e-4 relative of the port's f64 run on
    the CPU, cost traces at 1000x500 r25 over 50 iterations (symnmf on a
-   planted 25-block similarity of n = 500). The kernel counters, set to 0 before phase 11, are
-   printed after phase 12: this slice's path runs no kernel;
+   planted 25-block similarity of n = 500). The kernel counters (the
+   naive KL passes' too), set to 0 before phase 11, are printed after
+   phase 12: this slice's path runs no kernel;
 13. the convolutive family at the JAX package's shapes for it, f32: ``cnmf``
    at 513x10 000 r64 T8 (euclid ``gram`` and ``naive``, KL, IS) and
    ``nmf2d`` there with P5 (euclid, KL), ms per iteration from calls of 2
@@ -154,8 +171,9 @@ without printing the last line:
    the card in f64 at tests/test_goldens.py's tolerances; each solver in
    f32 on the card (NumPy inputs, no ``device=``) within 1e-4 relative of
    its f64 run on the CPU, cost traces at 129x400 r8 T4 P3 (chcnmf p = 40)
-   over 50 iterations.  The kernel counters, set to 0 before phase 13,
-   must read 0 after it: the JAX modules it ports reach no pallas_call;
+   over 50 iterations.  The kernel counters (the naive KL passes' too),
+   set to 0 before phase 13, must read 0 after it: the JAX modules it
+   ports reach no pallas_call, and it runs no naive KL ``nmf``;
 14. the projected-gradient and complex solvers and the audio front end at
    the JAX package's shapes for them, f32, TF32 off.  ``nmfsc`` at
    BASELINE #2's 5000x2000 r50 with H_sparsity 0.6, V uniform in [0.1, 1]
@@ -181,8 +199,8 @@ without printing the last line:
    ``device=``) against f64 on the CPU: cmfwisa's cost trace within 1e-4,
    nmfsc's and cnmfsc's final cost within 1e-3 relative, with whether
    their step sizes agreed; every nmfsc / cnmfsc trace non-increasing
-   within 1e-5 relative.  The kernel counters, set to 0 before phase 14,
-   must read 0 after it.
+   within 1e-5 relative.  The kernel counters (the naive KL passes'
+   too), set to 0 before phase 14, must read 0 after it.
 15. the checkpointed run, io, native, the CLI, the estimator and the
    debug helpers (~45 s), on phase 3's V (rebuilt from its seed) and
    phase 7's: ``run_checkpointed(nmf, method="fused")`` KL at 40 000x10 000
@@ -249,8 +267,9 @@ without printing the last line:
    from the host: the ranks bit-identical to each other and within 1e-4
    of one rank on W, H and the cost, nmfsc and cnmfsc in f64 within
    1e-9 (their line searches compare summed objectives, whose f32 order
-   could flip a decision).  The four kernels' counters, set to 0 at the
-   phase's start, read 0 at its end on every process; the phase prints
+   could flip a decision).  The six kernels' counters (the fused three,
+   the dma one and the naive KL passes), set to 0 at the phase's start,
+   read 0 at its end on every process; the phase prints
    its wall time.
 18. nmfsc's phased dispatch and its kernel (~1.5 min).  (a) the Hoyer
    projection kernel (hoyer_project, csrc/hoyer.cu) against its plain
@@ -323,7 +342,9 @@ without printing the last line:
    counters (set to 0 before the meshed call): the three fused kernels
    above 0 on every rank of the fused runs and ``kl_phi_dot_ht_dma`` at
    0, ``hoyer_project`` above 0 on every rank of nmfsc and cnmfsc, no
-   fused kernel elsewhere.  On each mesh ``save_factors_orbax`` and
+   fused kernel elsewhere; the naive KL passes on every rank of the
+   weighted KL ``nmf`` (two fields and one cost, each rank's own block's,
+   an iteration) and nowhere else.  On each mesh ``save_factors_orbax`` and
    ``load_factors_orbax`` of a fused KL result restored bit-identical,
    and ``run_checkpointed`` fused KL, 20 iterations in chunks of 5,
    straight and crash-resumed, bit-identical to one meshed call.  The
@@ -344,8 +365,9 @@ keeps them), a JSON line of per-kernel results and, last, the device
 line.  A
 kernel's ``launches`` count its launches on its path: phase 3 for the
 three fused kernels, phase 6 (the only path that runs it) for
-kl_phi_dot_ht_dma, phase 18's (b) and (c) for hoyer_project, each
-counter set to 0 just before; ``launches_per_iter`` is each fused
+kl_phi_dot_ht_dma, phase 18's (b) and (c) for hoyer_project, phase 2b's
+weighted solve for kl_field and kl_cost (``launches_unweighted``: the
+cost's in phase 3's naive KL run), each counter set to 0 just before; ``launches_per_iter`` is each fused
 kernel's launches in phase 3's two fused runs over their iterations
 (kl_phi_dot_ht_dma's counted there too, where no solver calls it), and
 hoyer_project's per phased iteration at BASELINE #2 in (b), with
@@ -354,11 +376,12 @@ device's, events queued behind a device sleep; ``profiler_ms`` the
 kernel's own a launch from the profiler, null only where it saw no
 launch, and ``profiler_seen`` the share of the calls it saw; ``event_ms``
 by CUDA events back to back; ``host_us`` the wrapper's),
-plain ms and bound are at H's 50 rows of 2000 in f32.  ``library_ms``
-is null for all five: no single PyTorch call computes any of them.
-Each fused kernel's and hoyer_project's entry also lists its launches on
-each rank in phase 19's 1x4 run (fused KL; full-width nmfsc), or null
-where phase 19 did not run.  Imports nothing of JAX.  Phases 16, 17 and
+plain ms and bound are at H's 50 rows of 2000 in f32; the naive KL
+passes' at 40 000x10 000 (phase 2b).  ``library_ms`` is null for all
+seven: no single PyTorch call computes any of them.  Each fused
+kernel's, hoyer_project's and the naive KL passes' entry also lists its
+launches on each rank in phase 19's 1x4 run (fused KL; full-width
+nmfsc; weighted KL), or null where phase 19 did not run.  Imports nothing of JAX.  Phases 16, 17 and
 19 join their spawned ranks and stop multiprocessing's resource tracker
 before they end; on the way
 out, pass or fail, any child process still there is stopped and named
@@ -387,6 +410,13 @@ TENSOR_CORE = (("phi_dot_ht", "phase_kernel", "ILb0E"),
                ("kl_phi_dot_ht_dma", "kl_dma_kernel", "ILi"))
 DMA = ("kl_phi_dot_ht_dma", "nmf_toolbox_tpu/ops/pallas/fused_dma.py:85",
        "nmf_toolbox_tpu_torch/csrc/fused_dma.cu")
+# The naive KL step's passes: no pallas_call, the XLA fusion of the JAX
+# package's fields and cost in its jitted loop.
+NAIVE_KL = (("kl_field", "nmf_toolbox_tpu/ops/divergence.py:74 (weighted KL, fused by XLA)"),
+            ("kl_cost", "nmf_toolbox_tpu/ops/divergence.py:173 (KL, fused by XLA)"))
+NAIVE_KL_SOURCE = "nmf_toolbox_tpu_torch/csrc/naive_kl.cu"
+NAIVE_KL_BYTES = {"kl_field": 16, "kl_cost": 12, "kl_cost unweighted": 8}  # an entry
+NAIVE_KL_COST_RTOL = 1e-7  # the card's f64 sum, rounded once to f32
 CHECK_SHAPES = ((300, 700, 40), (40_000, 10_000, 100), (2_000, 3_000, 1024))
 # Both sides of each edge between kl_phi_dot_ht_dma's tiers, and k = 512.
 DMA_EDGES = tuple((2_000, 3_000, k) for k in (128, 129, 256, 257, 424, 425, 512))
@@ -647,6 +677,13 @@ def tensor_core_counts(_build):
     return counts
 
 
+def instance_of(fn, template):
+    """Whether the mangled kernel name ``fn`` is an instantiation of
+    ``template``: its length-prefixed name before the template arguments
+    (``11cost_kernelI``), so that ``kl_cost_kernel`` is not ``cost_kernel``."""
+    return f"{len(template)}{template}I" in fn
+
+
 def phase1_build():
     from nmf_toolbox_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
@@ -655,7 +692,8 @@ def phase1_build():
         f"({_build.library_path().name}, from {len(_build.sources())} sources)")
     counts = tensor_core_counts(_build)
     for wrapper, template, selector in TENSOR_CORE:
-        mine = {fn: c for fn, c in counts.items() if template in fn and selector in fn}
+        mine = {fn: c for fn, c in counts.items()
+                if instance_of(fn, template) and selector in fn}
         say(f"phase 1 sass {wrapper}: {sum(mine.values())} tensor-core instructions "
             f"(HMMA/HGMMA) in {len(mine)} instantiations of {template} "
             f"({sorted(mine.values())})")
@@ -672,7 +710,7 @@ def phase1_build():
         elif "Used" in line and "registers" in line and name:
             short = name.split("_cu_")[-1] if "_cu_" in name else name
             say(f"phase 1 ptxas {short}: {line.split(':', 1)[1].strip()}; {spills}")
-            if (any(template in name for _, template, _ in TENSOR_CORE)
+            if (any(instance_of(name, template) for _, template, _ in TENSOR_CORE)
                     and "0 bytes spill stores, 0 bytes spill loads" not in spills):
                 raise AssertionError(f"{short} spills: {spills}")
             name = None
@@ -790,7 +828,107 @@ def phase2_dma(torch, dk, lib, main_V):
     return stats
 
 
-def phase3_main_path(torch, fk, dk, nmf, V, W0, H0):
+def f64_kl_cost(torch, V, Vh, M):
+    """The f64 sum of the plain KL cost's f32 terms, weighted by M."""
+    t = V * torch.log(V / Vh) - V + Vh
+    if M is not None:
+        t = torch.where(M > 0, M * t, torch.zeros((), dtype=t.dtype, device=t.device))
+    return float(torch.sum(t.double()))
+
+
+def naive_kl_counts(nk):
+    return {name: getattr(nk, f"{name}_launches") for name, _ in NAIVE_KL}
+
+
+def zero_naive_kl_counts(nk):
+    nk.kl_field_launches = nk.kl_cost_launches = 0
+
+
+def phase2_naive_kl(torch, nk, nmf, main_V, W0, H0):
+    """Phase 2b: the naive KL passes at the main shape against their
+    plain versions, then a weighted naive KL solve against the same solve
+    on the plain versions."""
+    m, n, k = MAIN
+    g = torch.Generator(device="cuda").manual_seed(22)
+    W, H = torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda()
+    Vh = W @ H
+    u = torch.rand((m, n), generator=g, device="cuda")
+    M = torch.where(u < 0.2, torch.zeros((), device="cuda"), u)
+    # NaN under a fifth of the zero weights: the gate must zero them
+    V = main_V.masked_fill(u < 0.04, float("nan"))
+    del u
+    stats = {}
+    phi = nk.kl_field(V, Vh, M)
+    if not torch.equal(phi, nk.kl_field_reference(V, Vh, M)):
+        raise AssertionError("phase 2b kl_field differs from its plain version")
+    if not torch.equal(nk.kl_field(V, Vh, M), phi):
+        raise AssertionError("phase 2b kl_field: two runs differ in their bits")
+    del phi
+    ms = cuda_ms(torch, lambda: nk.kl_field(V, Vh, M), 5)
+    plain = cuda_ms(torch, lambda: nk.kl_field_reference(V, Vh, M), 5)
+    b_ms = 1e3 * NAIVE_KL_BYTES["kl_field"] * m * n / PEAK_BYTES
+    stats["kl_field"] = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": ms, "plain_ms": plain,
+                         "bound_ms": b_ms, "bound_by": "bytes"}
+    say(f"phase 2b kl_field weighted {m}x{n}: torch.equal to its plain version, kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms by bytes "
+        f"({100 * b_ms / ms:.1f}% of bound)")
+    cost = {"max_abs_err": 0.0, "max_rel_err": 0.0, "bound_by": "bytes"}
+    for label, Mx in (("", M), (" unweighted", None)):
+        Vx = V if Mx is not None else main_V  # no gate: no NaN
+        c = nk.kl_cost_terms(Vx, Vh, Mx)
+        want = f64_kl_cost(torch, Vx, Vh, Mx)
+        rel = abs(float(c) - want) / abs(want)
+        if not rel <= NAIVE_KL_COST_RTOL:
+            raise AssertionError(f"phase 2b kl_cost{label}: {float(c)!r} against the f64 sum "
+                                 f"{want!r}, {rel:.3g} relative > {NAIVE_KL_COST_RTOL}")
+        if not torch.equal(nk.kl_cost_terms(Vx, Vh, Mx), c):
+            raise AssertionError(f"phase 2b kl_cost{label}: two runs differ in their bits")
+        ms = cuda_ms(torch, lambda: nk.kl_cost_terms(Vx, Vh, Mx), 5)
+        plain = cuda_ms(torch, lambda: nk.kl_cost_terms_reference(Vx, Vh, Mx), 5)
+        b_ms = 1e3 * NAIVE_KL_BYTES["kl_cost" + label] * m * n / PEAK_BYTES
+        suffix = label.replace(" ", "_")
+        cost["max_abs_err"] = max(cost["max_abs_err"], abs(float(c) - want))
+        cost["max_rel_err"] = max(cost["max_rel_err"], rel)
+        cost["ms" + suffix], cost["plain_ms" + suffix] = ms, plain
+        cost["bound_ms" + suffix] = b_ms
+        say(f"phase 2b kl_cost{label or ' weighted'} {m}x{n}: {rel:.3g} relative to the f64 "
+            f"sum, kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms by bytes "
+            f"({100 * b_ms / ms:.1f}% of bound)")
+    stats["kl_cost"] = cost
+    del V, Vh, W, H
+    torch.cuda.empty_cache()
+    kw = dict(W_init=W0, H_init=H0, weights=M, divergence="kl", method="naive",
+              maxiter=ITERS, tolerance=NEVER, device="cuda")
+    nmf(main_V, k, **{**kw, "maxiter": 2})
+    zero_naive_kl_counts(nk)
+    got, ms = wall_ms(torch, lambda: nmf(main_V, k, **kw))
+    launches = naive_kl_counts(nk)
+    if got.n_iters != ITERS or launches != {"kl_field": 2 * ITERS, "kl_cost": ITERS}:
+        raise AssertionError(f"phase 2b weighted naive KL: n_iters {got.n_iters}, "
+                             f"launches {launches}")
+    routed = nk.kl_field, nk.kl_cost_terms
+    nk.kl_field, nk.kl_cost_terms = nk.kl_field_reference, nk.kl_cost_terms_reference
+    try:
+        want, ms_plain = wall_ms(torch, lambda: nmf(main_V, k, **kw))
+    finally:
+        nk.kl_field, nk.kl_cost_terms = routed
+    if not (torch.equal(got.W, want.W) and torch.equal(got.H, want.H)):
+        raise AssertionError("phase 2b weighted naive KL: W, H differ from the plain versions'")
+    cg, cw = np.asarray(got.cost), np.asarray(want.cost)
+    cost_gap = float(np.max(np.abs(cg - cw) / np.abs(cw)))
+    for name, _ in NAIVE_KL:
+        stats[name]["launches"] = launches[name]
+        stats[name]["launches_per_iter"] = launches[name] / got.n_iters
+    say(f"phase 2b weighted nmf kl naive {m}x{n} r{k}, 80% weights, {ITERS} iterations: W, H "
+        f"torch.equal to the plain versions', cost trace {cost_gap:.3g} relative from theirs; "
+        f"{ms / ITERS:.2f} ms/iter, plain versions {ms_plain / ITERS:.2f} ms/iter; "
+        f"launches {json.dumps(launches)}")
+    del got, want, M
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase3_main_path(torch, fk, dk, nk, nmf, V, W0, H0):
     k = MAIN[2]
     kw = dict(W_init=W0, H_init=H0, maxiter=ITERS, tolerance=1e-30, device="cuda")
     for d in ("kl", "is"):  # warm both paths (allocator, cuBLAS handles)
@@ -805,7 +943,12 @@ def phase3_main_path(torch, fk, dk, nmf, V, W0, H0):
         launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
         if not all(launches[name] > 0 for name, _ in KERNELS):
             raise AssertionError(f"fused {d} run missed a kernel: {launches}")
+        zero_naive_kl_counts(nk)
         naive, ms_naive = wall_ms(torch, lambda: nmf(V, k, divergence=d, method="naive", **kw))
+        naive_launches = naive_kl_counts(nk)
+        if naive_launches != {"kl_field": 0, "kl_cost": naive.n_iters if d == "kl" else 0}:
+            raise AssertionError(f"naive {d} run, {naive.n_iters} iterations: naive KL "
+                                 f"launches {naive_launches}")
         cf, cn = np.asarray(fused.cost), np.asarray(naive.cost)
         if fused.n_iters != ITERS or not np.all(np.isfinite(cf)):
             raise AssertionError(f"fused {d}: n_iters {fused.n_iters}, cost {cf}")
@@ -818,11 +961,13 @@ def phase3_main_path(torch, fk, dk, nmf, V, W0, H0):
             if x.device.type != "cuda" or not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"fused {d} {name} not finite on the card")
         out[d] = {"launches": launches, "iters": fused.n_iters,
+                  "naive_launches": naive_launches, "naive_iters": naive.n_iters,
                   "ms_per_iter_fused": ms_fused / ITERS,
                   "ms_per_iter_naive": ms_naive / ITERS}
         say(f"phase 3 nmf {d} {MAIN[0]}x{MAIN[1]} r{k}: fused "
             f"{ms_fused / ITERS:.2f} ms/iter, naive {ms_naive / ITERS:.2f} ms/iter, "
-            f"launches {launches}, final cost fused {cf[-1]:.7g} naive {cn[-1]:.7g}")
+            f"launches {launches}, naive launches {naive_launches}, final cost fused "
+            f"{cf[-1]:.7g} naive {cn[-1]:.7g}")
     # Where a fused KL iteration's device time goes (counters already read).
     prof = profile_device_ms(
         torch, lambda: nmf(V, k, divergence="kl", method="fused", **kw), ITERS)
@@ -3062,6 +3207,7 @@ def mesh17_rank(rank, tmp, queue):
         torch.backends.cuda.matmul.allow_tf32 = False
         from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
         from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
+        from nmf_toolbox_tpu_torch.ops.kernels import naive_kl as nk
         from nmf_toolbox_tpu_torch.parallel import collectives, init_distributed, make_mesh
         init_distributed(f"file://{tmp}/rendezvous17", 2, rank, backend="gloo",
                          timeout=MESH_TIMEOUT)
@@ -3069,12 +3215,14 @@ def mesh17_rank(rank, tmp, queue):
         out, saved = {"rank": rank}, {}
         zero_fused_counts(fk)
         dk.kl_phi_dot_ht_dma_launches = 0
+        zero_naive_kl_counts(nk)
         for name, run in rank_runs(rank_inputs(torch), MESH_RANK_ITERS, mesh).items():
             calls = collectives.calls
             res, ms = wall_ms(torch, run)
             out[name] = {"ms": ms, "collectives": collectives.calls - calls}
             saved[name] = factors(torch, res)
-        out["launches"] = dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches})
+        out["launches"] = dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches},
+                               **naive_kl_counts(nk))
         torch.save(saved, f"{tmp}/rank17_{rank}.pt")
         torch.distributed.destroy_process_group()
         queue.put((rank, out))
@@ -3156,10 +3304,12 @@ def phase17_mesh_solvers(torch, fk, V_gram):
     import torch.distributed as dist
     import nmf_toolbox_tpu_torch as tt
     from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
+    from nmf_toolbox_tpu_torch.ops.kernels import naive_kl as nk
     from nmf_toolbox_tpu_torch.parallel import collectives, init_distributed, make_mesh
     t0 = time.perf_counter()
     zero_fused_counts(fk)
     dk.kl_phi_dot_ht_dma_launches = 0
+    zero_naive_kl_counts(nk)
     summary = {"one_rank_nccl": {}, "two_ranks_gloo": {}}
     x = solver_inputs(torch, V_gram)
     V_host = V_gram.cpu().numpy()
@@ -3226,13 +3376,14 @@ def phase17_mesh_solvers(torch, fk, V_gram):
         if not max(gap.values()) <= tol:
             raise AssertionError(f"phase 17 {name}: two ranks are {gap} from one rank, "
                                  f"beyond {tol}")
-    launches = dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches})
+    launches = dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches},
+                    **naive_kl_counts(nk))
     ranks_launches = [got[r]["launches"] for r in (0, 1)]
     summary["launches"] = {"one_rank": launches, "two_ranks": ranks_launches}
     say(f"phase 17 kernel launches: one rank {json.dumps(launches)}, two ranks "
         f"{json.dumps(ranks_launches)}")
     if any(launches.values()) or any(v for rl in ranks_launches for v in rl.values()):
-        raise AssertionError(f"phase 17 launched a fused kernel: {summary['launches']}")
+        raise AssertionError(f"phase 17 launched a kernel: {summary['launches']}")
     summary["phase_s"] = time.perf_counter() - t0
     say(f"phase 17 wall time {summary['phase_s']:.1f} s")
     say(f"phase 17 {json.dumps(summary)}")
@@ -3870,6 +4021,7 @@ def mesh19_rank(rank, tmp, queue):
         from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
         from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
         from nmf_toolbox_tpu_torch.ops.kernels import hoyer as hk
+        from nmf_toolbox_tpu_torch.ops.kernels import naive_kl as nk
         from nmf_toolbox_tpu_torch.parallel import collectives, init_distributed, make_mesh
         t0 = time.perf_counter()
         init_distributed(f"file://{tmp}/rendezvous19", CARDS19, rank, backend="nccl",
@@ -3883,7 +4035,8 @@ def mesh19_rank(rank, tmp, queue):
 
         def counts():
             return dict(fused_counts(fk), **{DMA[0]: dk.kl_phi_dot_ht_dma_launches,
-                                             HOYER[0]: hk.hoyer_project_launches})
+                                             HOYER[0]: hk.hoyer_project_launches},
+                        **naive_kl_counts(nk))
         for name, (call, iters, tol, timed) in p19_runs(x).items():
             row, ref = {"rtol": tol}, None
             if rank == 0:
@@ -3900,6 +4053,7 @@ def mesh19_rank(rank, tmp, queue):
                 dist.barrier()
                 zero_fused_counts(fk)
                 dk.kl_phi_dot_ht_dma_launches = hk.hoyer_project_launches = 0
+                zero_naive_kl_counts(nk)
                 calls = collectives.calls
                 res, ms = wall_ms(torch, lambda: call(mesh))
                 got = factors(torch, res)
@@ -3930,8 +4084,9 @@ def check19(got):
     """Phase 19's verdicts from the ranks' answers: per solve and mesh,
     every rank bit-identical to rank 0, rank 0 within the solve's
     tolerance of one card with the same n_iters, the fused kernels
-    launched on every rank of the fused runs (the dma kernel never) and
-    hoyer_project on every rank of the sparse runs; the checkpoints
+    launched on every rank of the fused runs (the dma kernel never),
+    hoyer_project on every rank of the sparse runs and the naive KL
+    passes on every rank of the weighted KL run alone; the checkpoints
     bit-identical.  Prints a line per solve and mesh, and raises once
     every line is out if any of them failed."""
     ranks = [got[r] for r in range(CARDS19)]
@@ -3965,6 +4120,11 @@ def check19(got):
             projected = all(c[HOYER[0]] > 0 for c in cell["launches"]) if sparse else True
             quiet = all(not any(c[k] for k, _ in KERNELS) and not c[DMA[0]]
                         for c in cell["launches"]) if not fused else True
+            # the naive KL passes: two fields and a cost an iteration on
+            # every rank of the weighted KL solve, none elsewhere
+            per = cells[0]["n_iters"] if name.startswith("nmf kl weights") else 0
+            naive = all({k: c[k] for k, _ in NAIVE_KL} == {"kl_field": 2 * per, "kl_cost": per}
+                        for c in cell["launches"])
             gap = max(cell["vs_one_card"].values())
             allowed = "not held: see p19_runs" if tol is None else f"allowed {tol:g}"
             say(f"phase 19 {label}, {name}: ranks bit-identical {cell['rank_identical']}; from "
@@ -3977,7 +4137,8 @@ def check19(got):
                    if cell["reduced_mb_per_iter"] is not None else "")
                 + f"; launches per rank {json.dumps(cell['launches'])}")
             if not (cell["rank_identical"] and cell["n_iters_equal"]
-                    and (tol is None or gap <= tol) and launched and projected and quiet):
+                    and (tol is None or gap <= tol) and launched and projected and quiet
+                    and naive):
                 failures.append(f"{label} {name}: {json.dumps(cell)}")
         summary["solves"][name] = out
     for label in ("1x4", "2x2"):
@@ -4126,6 +4287,7 @@ def main():
     from nmf_toolbox_tpu_torch.ops.kernels import _build
     from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
     from nmf_toolbox_tpu_torch.ops.kernels import fused_dma as dk
+    from nmf_toolbox_tpu_torch.ops.kernels import naive_kl as nk
 
     m, n, k = MAIN
     rng = np.random.default_rng(0)
@@ -4135,7 +4297,8 @@ def main():
 
     stats = phase2_kernels(torch, fk, V)
     dma_stats = phase2_dma(torch, dk, _build.load(), V)
-    main_path = phase3_main_path(torch, fk, dk, nmf, V, W0, H0)
+    naive_stats = phase2_naive_kl(torch, nk, nmf, V, W0, H0)
+    main_path = phase3_main_path(torch, fk, dk, nk, nmf, V, W0, H0)
     del V
     torch.cuda.empty_cache()
     phase4_gram(torch, nmf)
@@ -4154,17 +4317,21 @@ def main():
     # reach no pallas_call); the counters say whether any launched.
     fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
     dk.kl_phi_dot_ht_dma_launches = 0
+    zero_naive_kl_counts(nk)
     phase11_streaming(torch, V)
     phase12_gram_family(torch, V)
     launches = {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
     launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
+    launches.update(naive_kl_counts(nk))
     say(f"phase 12 kernel launches in phases 11-12: {json.dumps(launches)}")
     # Phase 13 ports modules that reach no pallas_call: no kernel may launch.
     fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
     dk.kl_phi_dot_ht_dma_launches = 0
+    zero_naive_kl_counts(nk)
     phase13_convolutive(torch, V)
     launches = {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
     launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
+    launches.update(naive_kl_counts(nk))
     say(f"phase 13 kernel launches in phase 13: {json.dumps(launches)}")
     if any(launches.values()):
         raise AssertionError(f"phase 13 launched a kernel: {launches}")
@@ -4172,9 +4339,11 @@ def main():
     # launch (their projections launch hoyer_project, counted per run).
     fk.phi_dot_ht_launches = fk.wt_dot_phi_launches = fk.cost_terms_launches = 0
     dk.kl_phi_dot_ht_dma_launches = 0
+    zero_naive_kl_counts(nk)
     phase14_sparse_complex_audio(torch, V)
     launches = {name: getattr(fk, f"{name}_launches") for name, _ in KERNELS}
     launches[DMA[0]] = dk.kl_phi_dot_ht_dma_launches
+    launches.update(naive_kl_counts(nk))
     say(f"phase 14 kernel launches in phase 14: {json.dumps(launches)}")
     if any(launches.values()):
         raise AssertionError(f"phase 14 launched a kernel: {launches}")
@@ -4242,6 +4411,16 @@ def main():
         "four_card_launches_per_rank": mesh_launches(
             f"nmfsc W_sparsity 0.5 H_sparsity 0.6 {GRAM[0]}x{GRAM[1]} r{GRAM[2]}", name),
     })
+    mw, nw, kw = WEIGHTED
+    for name, replaces in NAIVE_KL:
+        s = naive_stats[name]
+        row = {"name": name, "route": "cuda", "source": NAIVE_KL_SOURCE, "replaces": replaces,
+               **s, "library_ms": None,
+               "four_card_launches_per_rank": mesh_launches(f"nmf kl weights {mw}x{nw} r{kw}",
+                                                            name)}
+        if name == "kl_cost":
+            row["launches_unweighted"] = main_path["kl"]["naive_launches"][name]
+        kernels.append(row)
     say(card())  # again, where the tail of a long log keeps it
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

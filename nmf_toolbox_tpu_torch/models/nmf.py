@@ -86,10 +86,17 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None, mesh=None):
         fdt = wsp.dtype  # the factors' dtype
         v_sq = sum_all(mesh, sq_norm(V.to(fdt)))
     elif spec.method == "naive":
+        from ..ops.kernels import naive_kl as nk
         # the valid region of a padded problem, from this block's offsets
         offset = ((0, 0) if mesh is None else
                   (mesh.coord("m") * V.shape[0], mesh.coord("n") * V.shape[1]))
         mask = region_mask(V.shape, spec.valid, V.device, offset)
+        # KL on a card in f32 with no padding: the cost, and a weighted
+        # field, are one hand-written pass each over the m x n operands
+        kl_pass = kl and nk.takes(V, mask)
+        if kl_pass:
+            V = V.contiguous()
+            Mw = None if Mw is None else Mw.contiguous()
     else:
         from ..ops.kernels import fused as fk
         V = V.contiguous()  # the kernels take row-major operands
@@ -143,12 +150,16 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None, mesh=None):
             return c + penalty(W, H)
         return finish((W, H), carry, i, cost_fn)
 
+    def naive_fields(V_hat):
+        if kl_pass and Mw is not None:  # as dv.fields gives them: the ones field is Mw
+            return nk.kl_field(V, V_hat, Mw), Mw, None
+        return dv.fields(div, V, V_hat, alpha, beta, mask=mask, weights=Mw)
+
     def naive_step(carry, i):
         W, H = carry[0], carry[1]
         V_hat = W @ H
         if w_any:
-            phi_neg, phi_pos, power = dv.fields(div, V, V_hat, alpha, beta,
-                                                mask=mask, weights=Mw)
+            phi_neg, phi_pos, power = naive_fields(V_hat)
             if phi_pos is None:  # ones(m, n) @ H' without the ones (nmf.m:153)
                 A, h_rowsum = sum_samples(mesh, phi_neg @ H.T, torch.sum(H, dim=1))
                 B = h_rowsum[None, :].expand(W.shape)
@@ -161,8 +172,7 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None, mesh=None):
             W = update_w(W, neg, pos)
             V_hat = W @ H
         if h_any:
-            phi_neg, phi_pos, power = dv.fields(div, V, V_hat, alpha, beta,
-                                                mask=mask, weights=Mw)
+            phi_neg, phi_pos, power = naive_fields(V_hat)
             if phi_pos is None:  # W' @ ones(m, n) without the ones (nmf.m:184)
                 neg, w_colsum = sum_features(mesh, W.T @ phi_neg, torch.sum(W, dim=0))
                 pos = w_colsum[:, None].expand(H.shape)
@@ -171,8 +181,11 @@ def _make_step(spec: _Spec, V, wsp, hsp, Mw=None, mesh=None):
             H = update_h(H, dv.apply_power(neg, power), dv.apply_power(pos, power))
 
         def cost_fn():
-            c = dv.cost(div, V, W @ H, alpha, beta, mask=mask, weights=Mw,
-                        mesh=mesh)
+            if kl_pass:
+                c = sum_all(mesh, nk.kl_cost_terms(V, W @ H, Mw))
+            else:
+                c = dv.cost(div, V, W @ H, alpha, beta, mask=mask, weights=Mw,
+                            mesh=mesh)
             return c + penalty(W, H)
         return finish((W, H), carry, i, cost_fn)
 

@@ -69,6 +69,12 @@ _SIGNATURES = {
     # (N, is_double, int[3] out: threads, entries per thread, CTAs per
     # vector) -> the Hoyer projection's tier for N (-1 for N < 1)
     "nmf_hoyer_tier": ((_I, _I, _P), _I),
+    # (V, V_hat, M or NULL, phi, entries, stream) -> cudaError_t
+    "nmf_kl_field": ((_P, _P, _P, _P, _L, _P), _I),
+    # (entries, weighted) -> doubles of scratch nmf_kl_cost needs
+    "nmf_kl_cost_partials": ((_L, _I), _L),
+    # (V, V_hat, M or NULL, partials, out, entries, stream) -> cudaError_t
+    "nmf_kl_cost": ((_P, _P, _P, _P, _P, _L, _P), _I),
 }
 
 

@@ -1,6 +1,7 @@
 // Host emulation of the CUDA features the kernels of csrc/ use, so that
 // they compile with a C++20 host compiler and run on the CPU
-// (tests/test_torch_fused_emulated.py, tests/test_torch_hoyer_emulated.py).
+// (tests/test_torch_fused_emulated.py, tests/test_torch_hoyer_emulated.py,
+// tests/test_torch_naive_kl_emulated.py).
 // Each block (or each thread-block cluster) runs in turn; its threads are
 // std::threads, __syncthreads is a block-wide barrier, and a warp's
 // mma.sync gathers the 32 lanes' fragments through a warp barrier and
@@ -53,6 +54,12 @@ inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); retu
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline long long __double_as_longlong(double d) { long long u; std::memcpy(&u, &d, 8); return u; }
 [[noreturn]] inline void __trap() { std::abort(); }
+// Round-to-nearest f32 arithmetic: plain IEEE operations on the host,
+// built with -ffp-contract=off so that none is fused into an FMA.
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 template <class T> T min(T a, T b) { return a < b ? a : b; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 

@@ -97,7 +97,7 @@ def test_import_builds_nothing_and_never_imports_jax():
     code = (
         "import sys\n"
         "import nmf_toolbox_tpu_torch, nmf_toolbox_tpu_torch.interop\n"
-        "from nmf_toolbox_tpu_torch.ops.kernels import _build, fused, fused_dma\n"
+        "from nmf_toolbox_tpu_torch.ops.kernels import _build, fused, fused_dma, naive_kl\n"
         "from nmf_toolbox_tpu_torch.models import batched, hals, streaming\n"
         "import nmf_toolbox_tpu_torch.models.lnmf, nmf_toolbox_tpu_torch.models.seminmf\n"
         "import nmf_toolbox_tpu_torch.models.convexnmf, nmf_toolbox_tpu_torch.models.chnmf\n"

@@ -58,16 +58,17 @@ def host_source(path, helpers=ASM_HELPERS) -> str:
     return src
 
 
-def compile_emulated(source, tmp, helpers=ASM_HELPERS, prelude=""):
+def compile_emulated(source, tmp, helpers=ASM_HELPERS, prelude="", flags=()):
     """The library of ``source`` built for the CPU; ``prelude`` (macro
-    definitions, such as a tier table) goes before the source."""
+    definitions, such as a tier table) goes before the source, ``flags``
+    after the compiler's own."""
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("needs a C++20 host compiler (g++ or clang++)")
     cpp, so = tmp / f"{source.stem}_emu.cpp", tmp / f"lib{source.stem}_emu.so"
     cpp.write_text(prelude + host_source(source, helpers))
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
-                    "-o", str(so), str(cpp)], check=True, timeout=300)
+                    *flags, "-o", str(so), str(cpp)], check=True, timeout=300)
     return _build.bind(ctypes.CDLL(str(so)))
 
 
