@@ -8,8 +8,10 @@ prints one JSON line (``correct``, ``attempted``, ``failed``,
 ``metrics``, ``device``, with ``--trace 1`` also ``breakdown``, and last
 ``checks``).  ``BENCHMARK.json`` names the cells; each configuration,
 traffic mix and metric is a file of its own here (``configs/``,
-``traffic/``, ``metrics/``).  ``control.py`` takes the readings the
-limits of ``check.py`` were set from.  The CPU tests:
+``traffic/``, ``metrics/``), and so is each solver of the port that a
+configuration names (``solvers/``) and its plain reference
+(``reference/``).  ``control.py`` takes the readings the limits of
+``check.py`` were set from.  The CPU tests:
 ``python -m pytest nmfbench/tests -q``; those marked ``cuda`` run on a
 card.  Nothing here imports JAX or the JAX package.
 """

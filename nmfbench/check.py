@@ -2,9 +2,9 @@
 
 A run hands over, for every solve of its window, the cost trace and
 ``n_iters`` that the program returned, and for the solve drawn from the
-seed also its W and H.  The plain reference (``reference/mu.py``) works
-that solve out again from the same V, W0, H0 (and M) and the numbers
-below are set beside the traffic file's ``limits``:
+seed also its W and H.  The plain reference that the configuration
+names works that solve out again from the same V, inits (and M) and the
+numbers below are set beside the traffic file's ``limits``:
 
 * ``cost_gap``: the largest relative gap between the program's and the
   reference's cost at one iteration, over the iterations both ran;
@@ -47,7 +47,7 @@ def rel_norm_gap(torch, X, X_ref) -> float:
 
 def trajectory_gaps(torch, cost, n_iters, W, H, ref) -> dict:
     """cost_gap, W_gap and H_gap of one solve against a reference run
-    (``reference.mu.solve`` with a snapshot at ``n_iters``)."""
+    (the solver's ``reference_solve`` with a snapshot at ``n_iters``)."""
     c = np.asarray(cost, dtype=np.float64)
     r = np.asarray(ref["cost"], dtype=np.float64)
     both = min(len(c), len(r))

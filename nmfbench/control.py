@@ -4,9 +4,10 @@ seed by seed, at a cell's own size, in one process.
     python3 nmfbench/control.py --workload <cell> --seeds 1 2 3
 
 For each seed it makes the cell's V (and M) and tolerance as a run does,
-and for solve 0's init it sets beside the plain reference (TF32 off):
+and for solve 0's init it sets beside the plain reference that the
+configuration names (TF32 off):
 
-* the program (``nmf_toolbox_tpu_torch.nmf`` as the cell calls it, on one
+* the program (the solver's entry point as the cell calls it, on one
   card): the lower reading of each number;
 * the control: the reference put in the program's place and run with
   TF32 products, the nearest precision below the configuration's f32:
@@ -28,28 +29,25 @@ if __package__ in (None, ""):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from nmfbench import cells, check, data, harness  # noqa: E402
-from nmfbench.reference import mu  # noqa: E402
 
 
 def readings(cell, seed, device):
     import torch
-    import nmf_toolbox_tpu_torch as nt
     cfg, tr = cell.config, cell.traffic
     V, parts = data.make_v(cfg, tr, seed, device)
     M = data.make_mask(cfg, tr, seed, device)
-    tol = data.tolerance(cfg, tr, V, parts, M)
+    tol = data.tolerance(cfg, tr, V, parts, M, cell.solver)
     del parts
-    W0, H0 = data.make_init(cfg, seed, 0, device)
+    init = data.make_init(cfg, seed, 0, device, cell.solver)
     cap = int(tr["cap"])
     out, runs = {"seed": seed}, {}
-    kw = harness.solve_kwargs(cell, tol, W0, H0, M, None)
     t0 = time.perf_counter()
-    res = nt.nmf(V, int(cfg["k"]), **kw)
+    res = harness.program_solve(cell, V, init, tol, M, None)
     out["program_s"] = time.perf_counter() - t0
     runs["program"] = (res.cost, int(res.n_iters), bool(res.converged), res.W, res.H)
     del res
     t0 = time.perf_counter()
-    ctl = mu.solve(V, W0, H0, cfg["divergence"], tol, cap, M=M, tf32=True)
+    ctl = cell.solver.reference_solve(cell.reference, cfg, tr, V, init, tol, M=M, tf32=True)
     out["control_s"] = time.perf_counter() - t0
     n_c = ctl["n_iters"] or cap
     runs["control"] = (ctl["cost"][:n_c], n_c, ctl["n_iters"] is not None, ctl["W"], ctl["H"])
@@ -57,8 +55,8 @@ def readings(cell, seed, device):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ref = mu.solve(V, W0, H0, cfg["divergence"], tol, cap, M=M,
-                   snapshots=[r[1] for r in runs.values()])
+    ref = cell.solver.reference_solve(cell.reference, cfg, tr, V, init, tol, M=M,
+                                      snapshots=[r[1] for r in runs.values()])
     out["reference_s"] = time.perf_counter() - t0
     out["reference_n_iters"] = ref["n_iters"]
     for name, (cost, n, stopped, W, H) in runs.items():

@@ -6,29 +6,56 @@ the device, in a few large calls:
 * V: a planted non-negative product plus non-negative noise,
   ``V = A B / r + noise * U + floor``, where the entries of A (m x r)
   and B (r x n) are ``u ** power`` and those of U (m x n) are u, for u
-  uniform on [0, 1), so every entry is at least ``floor`` > 0 (KL needs
-  V > 0) and a power above 1 makes the planted factors skewed, as
-  spectra and counts are;
+  uniform on [0, 1), so every entry is at least ``floor`` > 0 (a
+  divergence with a logarithm needs V > 0) and a power above 1 makes the
+  planted factors skewed, as spectra and counts are;
 * M: per-entry weights in {0, 1}, each 0 with probability
   ``mask_zero_share`` (the traffic's missing entries), or none;
-* the solves' inits: W0 (m x k) and H0 (k x n) uniform on [0, 1) with a
-  floor, one pair per solve, each from its own stream of the seed, so
-  solve j of a seed gets the same inits in every run;
-* the stop rule's tolerance: ``rel_tol`` times the cost of the planted
-  model ``A B / r + mean(noise * U) + floor``, so that ``rel_tol`` reads
-  as a decrease relative to the cost a good fit reaches.
+* the solves' inits: the solver's ``make_init``, one set per solve,
+  each from its own stream of the seed (:func:`generator`), so solve j of
+  a seed gets the same inits in every run;
+* the stop rule's tolerance: ``rel_tol`` times the solver's cost of the
+  planted model ``A B / r + mean(noise * U) + floor``, so that
+  ``rel_tol`` reads as a decrease relative to the cost a good fit
+  reaches.
 
-The parameters are the traffic file's ``assumed.generator``.
+The parameters are the traffic file's ``assumed.generator``.  A function
+that takes ``solver=None`` uses the solver module of ``cfg``
+(``cells.solver``).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 
 import torch
 
-from .reference.mu import ROW_BLOCK, matmul_precision
+from . import cells
 
-INIT_FLOOR = 1e-30  # no init entry is exactly 0 (an MU zero stays zero)
+INIT_FLOOR = 1e-30  # no init entry is exactly 0 (a multiplicative zero stays zero)
+
+
+@contextlib.contextmanager
+def matmul_precision(tf32: bool):
+    """Products of f32 operands in TF32 (``tf32=True``) or in full f32,
+    whatever the caller had set; the caller's setting comes back on exit.
+    (The plain references carry their own copy: they import nothing of
+    the benchmark.)"""
+    mm = torch.backends.cuda.matmul
+    if hasattr(mm, "fp32_precision"):
+        saved = mm.fp32_precision
+        mm.fp32_precision = "tf32" if tf32 else "ieee"
+        try:
+            yield
+        finally:
+            mm.fp32_precision = saved
+    else:
+        saved = mm.allow_tf32
+        mm.allow_tf32 = tf32
+        try:
+            yield
+        finally:
+            mm.allow_tf32 = saved
 
 
 def substream(seed: int, *tags) -> int:
@@ -74,35 +101,13 @@ def make_mask(cfg, traffic, seed, device):
     return (M >= float(share)).to(torch.float32)
 
 
-def make_init(cfg, seed, j, device):
-    """W0 (m x k), H0 (k x n) of solve ``j``: uniform on [0, 1) with a floor."""
-    g = generator(device, seed, "init", j)
-    W0 = torch.rand((cfg["m"], cfg["k"]), generator=g, device=device)
-    H0 = torch.rand((cfg["k"], cfg["n"]), generator=g, device=device)
-    return W0.clamp_min_(INIT_FLOOR), H0.clamp_min_(INIT_FLOOR)
+def make_init(cfg, seed, j, device, solver=None):
+    """The inits of solve ``j``."""
+    return (solver or cells.solver(cfg)).make_init(cfg, seed, j, device)
 
 
-def planted_cost(V, parts, divergence, M=None):
-    """The cost of the planted model, block by block, in f64."""
-    A, B, const = parts
-    total = torch.zeros((), dtype=torch.float64, device=V.device)
-    with torch.no_grad(), matmul_precision(False):
-        for r0 in range(0, V.shape[0], ROW_BLOCK):
-            Vb = V[r0:r0 + ROW_BLOCK].double()
-            S = (A[r0:r0 + ROW_BLOCK] @ B).double() + const
-            if divergence == "euclidean":
-                term = 0.5 * (Vb - S) ** 2
-            elif divergence == "kl":
-                term = Vb * torch.log(Vb / S) - Vb + S
-            else:
-                raise ValueError(f"no planted cost for {divergence!r}")
-            if M is not None:
-                term = term * M[r0:r0 + ROW_BLOCK].double()
-            total += torch.sum(term)
-    return float(total)
-
-
-def tolerance(cfg, traffic, V, parts, M=None) -> float:
+def tolerance(cfg, traffic, V, parts, M=None, solver=None) -> float:
     """The stop rule's absolute tolerance: ``rel_tol`` times the planted
     model's cost."""
-    return float(traffic["rel_tol"]) * planted_cost(V, parts, cfg["divergence"], M)
+    solver = solver or cells.solver(cfg)
+    return float(traffic["rel_tol"]) * solver.planted_cost(cfg, V, parts, M)

@@ -13,12 +13,14 @@ A run:
    the card from the seed, the tolerance worked out, one short solve of
    the cell's own shapes (the first run in a checkout builds the port's
    kernel library there, into ``nmf_toolbox_tpu_torch/_build/``);
-2. the window: solves back to back, ``nmf_toolbox_tpu_torch.nmf`` from a
-   new seeded init each, until ``--seconds`` have passed; a solve that
-   starts inside runs to its end and counts;
+2. the window: solves back to back, the configuration's solver
+   (``solvers/<solver>.py``: the port's entry point) from a new seeded
+   init each, until ``--seconds`` have passed; a solve that starts
+   inside runs to its end and counts;
 3. with ``--trace 1``, one more solve under ``torch.profiler``;
 4. the check (``check.py``): a solve drawn from the seed is worked out
-   again by the plain reference, after the program's state is freed.
+   again by the plain reference that the configuration names, after the
+   program's state is freed.
 """
 from __future__ import annotations
 
@@ -67,29 +69,20 @@ class Run:
         self.setup_s = reading["setup_s"]
         self.counters = reading["counters"]
         self.profile = reading.get("profile")
-        self.flops_per_iter = work.flops_per_iter(cfg, traffic)
-        self.least_s_per_iter = work.least_seconds_per_iter(cfg, traffic, kind, cell.chips)
+        self.flops_per_iter = work.flops_per_iter(cfg, traffic, cell.solver)
+        self.least_s_per_iter = work.least_seconds_per_iter(cfg, traffic, kind, cell.chips,
+                                                            cell.solver)
         p = work.peaks(kind)
         self.peak_flops = None if p is None else p["flops"]
 
 
-def solve_kwargs(cell, tol, W0, H0, M, mesh, maxiter=None):
+def program_solve(cell, V, init, tol, M, mesh, maxiter=None):
+    """One solve of the port as the cell makes it: the solver's call, with
+    the traffic file's ``"options"`` as keyword arguments of the entry
+    point."""
     tr = cell.traffic
-    kw = {"divergence": cell.config["divergence"], "W_init": W0, "H_init": H0,
-          "tolerance": tol, "maxiter": int(maxiter or tr["cap"])}
-    if tr.get("method"):
-        kw["method"] = tr["method"]
-    if M is not None:
-        kw["weights"] = M
-    if mesh is not None:
-        kw["mesh"] = mesh
-    return kw
-
-
-def fused_launches():
-    from nmf_toolbox_tpu_torch.ops.kernels import fused as fk
-    return {"phase_kernel": fk.phi_dot_ht_launches + fk.wt_dot_phi_launches,
-            "cost_kernel": fk.cost_terms_launches}
+    return cell.solver.solve(cell.config, tr, V, init, tol, int(maxiter or tr["cap"]),
+                             M=M, mesh=mesh, **(tr.get("options") or {}))
 
 
 def serve(cell, seed, seconds, trace, device, t0, mesh=None):
@@ -97,11 +90,9 @@ def serve(cell, seed, seconds, trace, device, t0, mesh=None):
     Returns the program side of the reading; ``reading["check"]`` holds
     what :func:`check_solve` needs."""
     import torch
-    import nmf_toolbox_tpu_torch as nt
     from nmf_toolbox_tpu_torch import core
     from nmf_toolbox_tpu_torch.parallel import collectives
     cfg, tr = cell.config, cell.traffic
-    k = int(cfg["k"])
     is_root = mesh is None or torch.distributed.get_rank() == 0
 
     def agree(value: float) -> float:
@@ -117,12 +108,11 @@ def serve(cell, seed, seconds, trace, device, t0, mesh=None):
     M = data.make_mask(cfg, tr, seed, device)
     timing.sync(torch, device)
     steps.append(("inputs", time.time() - t0))
-    tol = agree(data.tolerance(cfg, tr, V, parts, M))
+    tol = agree(data.tolerance(cfg, tr, V, parts, M, cell.solver))
     del parts
     steps.append(("tolerance", time.time() - t0))
-    W0, H0 = data.make_init(cfg, seed, "warm", device)
-    nt.nmf(V, k, **solve_kwargs(cell, tol, W0, H0, M, mesh, maxiter=WARM_ITERS))
-    del W0, H0
+    program_solve(cell, V, data.make_init(cfg, seed, "warm", device, cell.solver), tol, M,
+                  mesh, maxiter=WARM_ITERS)
     timing.sync(torch, device)
     steps.append(("warm solve", time.time() - t0))
     if is_root:
@@ -139,26 +129,26 @@ def serve(cell, seed, seconds, trace, device, t0, mesh=None):
     setup_s = time.time() - t0
     solves, factors, end = [], [], start
     while agree(float(time.perf_counter() - start < seconds)):
-        W0, H0 = data.make_init(cfg, seed, len(solves), device)
-        kw = solve_kwargs(cell, tol, W0, H0, M, mesh)
-        res, sec = timing.wall(torch, device, lambda: nt.nmf(V, k, **kw))
+        init = data.make_init(cfg, seed, len(solves), device, cell.solver)
+        res, sec = timing.wall(torch, device,
+                               lambda: program_solve(cell, V, init, tol, M, mesh))
         end = time.perf_counter()
         solves.append({"n_iters": int(res.n_iters), "stopped": bool(res.converged),
                        "seconds": sec, "cost": res.cost})
         factors.append((res.W, res.H) if is_root else None)
-        del res, W0, H0, kw
+        del res, init
     reading = {"solves": solves, "window_s": end - start, "setup_s": setup_s,
                "counters": {"host_reads": core.host_reads - reads0,
                             "collectives": collectives.calls - coll0},
                "memory_peak_bytes": (int(torch.cuda.max_memory_allocated(device))
                                      if device.type == "cuda" else 0)}
     if trace:
-        W0, H0 = data.make_init(cfg, seed, len(solves), device)
-        kw = solve_kwargs(cell, tol, W0, H0, M, mesh)
-        before = fused_launches()
-        res, prof = timing.profile(torch, device, lambda: nt.nmf(V, k, **kw))
+        init = data.make_init(cfg, seed, len(solves), device, cell.solver)
+        before = cell.solver.launches()
+        res, prof = timing.profile(torch, device,
+                                   lambda: program_solve(cell, V, init, tol, M, mesh))
         prof["iters"] = int(res.n_iters)
-        after = fused_launches()
+        after = cell.solver.launches()
         counts = prof.pop("device_op_counts")
         for name, count in after.items():
             if count - before[name]:
@@ -166,7 +156,7 @@ def serve(cell, seed, seconds, trace, device, t0, mesh=None):
                 print(f"nmfbench: the profiler saw {seen} {name} launches of "
                     f"{count - before[name]}", file=sys.stderr)
         reading["profile"] = prof
-        del res, W0, H0, kw
+        del res, init
     drawn = data.substream(seed, "check") % len(solves)
     reading["check"] = {"index": drawn, "tolerance": tol, "V": V, "M": M,
                         "factors": factors[drawn] if is_root else None}
@@ -177,16 +167,15 @@ def serve(cell, seed, seconds, trace, device, t0, mesh=None):
 def check_solve(cell, seed, reading, device):
     """The numbers of ``check.py`` for the run, the program's state freed."""
     import torch
-    from .reference import mu
     got = reading.pop("check")
     V, M, (W, H) = got["V"], got["M"], got["factors"]
     solves, tol = reading["solves"], got["tolerance"]
     drawn = solves[got["index"]]
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    W0, H0 = data.make_init(cell.config, seed, got["index"], device)
-    ref = mu.solve(V, W0, H0, cell.config["divergence"], tol, int(cell.traffic["cap"]),
-                   M=M, snapshots=(drawn["n_iters"],))
+    init = data.make_init(cell.config, seed, got["index"], device, cell.solver)
+    ref = cell.solver.reference_solve(cell.reference, cell.config, cell.traffic, V, init, tol,
+                                      M=M, snapshots=(drawn["n_iters"],))
     numbers = check.trajectory_gaps(torch, drawn["cost"], drawn["n_iters"], W, H, ref)
     numbers["stop_breaks"] = sum(check.stop_breaks(s["cost"], s["n_iters"], s["stopped"], tol)
                                  for s in solves)

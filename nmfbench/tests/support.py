@@ -11,9 +11,12 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]  # nmfbench/
 REPO = HERE.parent
 
+MU = "nmfbench/reference/mu.py"
 TINY_CONFIGS = {
-    "tinykl": {"m": 60, "n": 48, "k": 6, "divergence": "kl", "dtype": "float32"},
-    "tinyeuc": {"m": 64, "n": 40, "k": 8, "divergence": "euclidean", "dtype": "float32"},
+    "tinykl": {"m": 60, "n": 48, "k": 6, "divergence": "kl", "dtype": "float32",
+               "reference": MU},
+    "tinyeuc": {"m": 64, "n": 40, "k": 8, "divergence": "euclidean", "dtype": "float32",
+                "reference": MU},
 }
 GEN = {"planted_rank": 6, "power": 3, "noise": 0.05, "floor": 0.001}
 LIMITS = {"cost_gap": 1e-4, "W_gap": 1e-3, "H_gap": 1e-3, "stop_breaks": 0}
@@ -23,6 +26,7 @@ TINY_TRAFFIC = {
     "tinyeuc.mesh4": {"config": "tinyeuc", "chips": 4, "method": None},
     "tinykl.masked": {"config": "tinykl", "chips": 1, "method": None,
                       "mask_zero_share": 0.2},
+    "tinykl.default": {"config": "tinykl", "chips": 1, "method": None},
 }
 
 
